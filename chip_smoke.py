@@ -1,0 +1,416 @@
+"""Smoke run of the PyTorch port (ntjoin_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the repository root
+
+Phases, each printing its own lines; a failure in any of them ends the run
+with a non-zero exit and no result line:
+
+1. card     the CUDA device, and its name and power limit from nvidia-smi
+2. build    nvcc builds the kernels from ntjoin_tpu_torch/csrc
+3. kernels  each kernel against its plain PyTorch version on the card, on
+            2^27 seeded bases (k=32, w=1000) with N runs, a poly-C and an AC
+            microsatellite stretch; outputs bit-equal; CUDA-event times
+4. sketch   sketch_records_torch on a multi-record batch with N runs against
+            the host oracle, and one forced overflow through kernel 3
+5. e2e      `python -m ntjoin_tpu_torch.cli assemble backend=cuda` on a
+            ~100 Mbp synthetic genome (two references, a 2,000-contig
+            target) against `python -m ntjoin_tpu.cli assemble
+            backend=native index_backend=host`: every artifact byte-equal
+
+The last three lines are the kernels' JSON record, the card's name and power
+limit, and {"ok": true, "device": {...}}.  Imports no JAX.
+"""
+from __future__ import annotations
+
+import filecmp
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from ntjoin_tpu.io import native
+from ntjoin_tpu.ops.nthash_np import sketch_codes
+from ntjoin_tpu_torch.ops import sketch_cuda as sc
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+K, W = 32, 1000
+SOURCES = {
+    "hash": ("ntjoin_tpu_torch/csrc/hash.cu", "ntjoin_tpu/ops/sketch_pallas.py:107"),
+    "window_emit": ("ntjoin_tpu_torch/csrc/window_emit.cu",
+                    "ntjoin_tpu/ops/sketch_pallas.py:540"),
+    "window": ("ntjoin_tpu_torch/csrc/window.cu", "ntjoin_tpu/ops/sketch_pallas.py:305"),
+}
+
+
+def say(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    raise SystemExit(1)
+
+
+def card() -> str:
+    if not torch.cuda.is_available():
+        fail("no CUDA device (torch.cuda.is_available() is False)")
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    say(f"== card: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    say(line)
+    return line
+
+
+def build() -> None:
+    secs, log = sc.build()
+    say(f"== build: {secs:.2f} s -> {os.path.relpath(sc.LIB_PATH, REPO)}")
+    for ln in log.splitlines():
+        if "Compiling entry" in ln or "Used" in ln:
+            say("   " + ln.strip())
+
+
+def _time_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _compare(name: str, got, want) -> float:
+    """Bit-equality of each output pair; returns the max abs difference."""
+    err = 0.0
+    for g, r in zip(got, want):
+        if g.shape != r.shape:
+            fail(f"{name}: shape {tuple(g.shape)} != plain {tuple(r.shape)}")
+        if g.numel():
+            err = max(err, float((g.double() - r.double()).abs().max()))
+        if not torch.equal(g, r):
+            fail(f"{name}: kernel differs from its plain version "
+                 f"({int((g != r).sum())} elements)")
+    return err
+
+
+def _repeat_codes(rng, codes: np.ndarray, n_ns: int, span: tuple[int, int]) -> None:
+    """Paint N runs, a poly-C and an AC microsatellite stretch into codes."""
+    n = codes.shape[0]
+    for s in rng.integers(0, n - 6000, size=n_ns):
+        codes[s : s + int(rng.integers(span[0], span[1]))] = 4
+    s = n // 3
+    codes[s : s + 5000] = 1
+    s = 2 * n // 3
+    codes[s : s + 5000 : 2] = 0
+    codes[s + 1 : s + 5001 : 2] = 1
+
+
+def kernels() -> dict[str, dict]:
+    """Phase 3: each kernel against its plain version at the bench shape."""
+    n = 1 << 27
+    rng = np.random.default_rng(2027)
+    codes = rng.integers(0, 4, size=n, dtype=np.int8)
+    _repeat_codes(rng, codes, 64, (10, 5000))
+    C, L = sc.layout(n, K, W)
+    rows, off = L + W + K - 2, K - 1
+    flat_np = np.full(C * L + W + K - 2, 4, dtype=np.int8)
+    flat_np[:n] = codes
+    flat = torch.from_numpy(flat_np).cuda()
+    view = sc._chunk_view(flat, L, C, rows)
+    say(f"== kernels: {n} bases, k={K} w={W}, C={C} chunks of L={L}")
+    out = {}
+
+    h, val = sc.hash_chunked(flat, L, C, rows, K)
+    h_ref, val_ref = sc.hash_chunked_ref(view, K)
+    err = _compare("hash", (h, val), (h_ref, val_ref))
+    del h_ref, val_ref
+    ms = _time_ms(lambda: sc.hash_chunked(flat, L, C, rows, K), 5)
+    plain_ms = _time_ms(lambda: sc.hash_chunked_ref(view, K), 2)
+    out["hash"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+    flags = sc.window_flags(val, L, W, off)
+    cap = sc._slot_cap(L, W)
+    got = sc.window_emit(h, flags, L, W, off, cap)
+    err = _compare("window_emit", got, sc.window_emit_ref(h, flags, L, W, off, cap))
+    over = torch.nonzero(got[2] > cap).flatten()
+    ms = _time_ms(lambda: sc.window_emit(h, flags, L, W, off, cap), 5)
+    plain_ms = _time_ms(lambda: sc.window_emit_ref(h, flags, L, W, off, cap), 2)
+    out["window_emit"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    say(f"   emission capacity {cap}/chunk; {over.numel()} chunks overflowed "
+        f"(max count {int(got[2].max())})")
+    del got
+    if over.numel() == 0:
+        fail("the repeat stretches overflowed no chunk: kernel 3 unexercised")
+
+    err = _compare("window (all chunks)", (sc.window_argmin(h, L, W, off),),
+                   (sc.window_argmin_ref(h, L, W, off),))
+    all_ms = _time_ms(lambda: sc.window_argmin(h, L, W, off), 3)
+    all_plain_ms = _time_ms(lambda: sc.window_argmin_ref(h, L, W, off), 2)
+    err = max(err, _compare("window (overflowed chunks)",
+                            (sc.window_argmin(h, L, W, off, over),),
+                            (sc.window_argmin_ref(h, L, W, off, over),)))
+    ms = _time_ms(lambda: sc.window_argmin(h, L, W, off, over), 5)
+    plain_ms = _time_ms(lambda: sc.window_argmin_ref(h, L, W, off, over), 5)
+    out["window"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    say(f"   window over all {C} chunks: kernel {all_ms:.3f} ms, plain {all_plain_ms:.3f} ms")
+    for name, r in out.items():
+        say(f"   {name}: bit-equal; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
+    return out
+
+
+def _records(rng, total: int) -> list[np.ndarray]:
+    """Records of mixed length (some under w+k-1), a third with N runs, one
+    with the repeat stretches."""
+    recs = []
+    size = 0
+    while size < total:
+        n = int(min(rng.lognormal(11.5, 1.5), 4_000_000)) + 10
+        c = rng.integers(0, 4, size=n, dtype=np.uint8)
+        if len(recs) % 3 == 0 and n > 20_000:
+            for s in rng.integers(0, n - 5000, size=int(rng.integers(1, 6))):
+                c[s : s + int(rng.integers(1, 3000))] = 4
+        recs.append(c)
+        size += n
+    recs += [rng.integers(0, 4, size=n, dtype=np.uint8) for n in (9, 1030, 1031, 1032)]
+    big = rng.integers(0, 4, size=400_000, dtype=np.uint8)
+    _repeat_codes(rng, big.view(np.int8), 4, (10, 2000))
+    recs.append(big)
+    return recs
+
+
+def _oracle(c: np.ndarray):
+    return native.sketch_codes_native(c, K, W) if native.available() else sketch_codes(c, K, W)
+
+
+def _same(got, recs, what: str) -> None:
+    for i, (g, c) in enumerate(zip(got, recs)):
+        r = _oracle(c)
+        if g.positions.tolist() != r.positions.tolist() or g.hashes.tolist() != r.hashes.tolist():
+            fail(f"{what}: record {i} ({c.shape[0]} bases) differs from the oracle")
+
+
+def sketch() -> None:
+    """Phase 4: the batched sketch against the host oracle."""
+    rng = np.random.default_rng(44)
+    recs = _records(rng, 48 << 20)
+    if not native.available():  # the numpy oracle is slow: a 2^22-base subset
+        sub, acc = [], 0
+        for c in recs[::-1]:
+            if acc + c.shape[0] <= 1 << 22:
+                sub.append(c)
+                acc += c.shape[0]
+        recs = sub
+    oracle = "native C++ sketcher" if native.available() else "nthash_np.sketch_codes"
+    bases = sum(c.shape[0] for c in recs)
+    sc.reset_counts()
+    t0 = time.monotonic()
+    got = sc.sketch_records_torch(recs, K, W, "cuda")
+    wall = time.monotonic() - t0
+    _same(got, recs, "sketch")
+    say(f"== sketch: {len(recs)} records, {bases} bases in {wall:.3f} s; equal to the "
+        f"{oracle}; counts {json.dumps(sc.COUNTS)}")
+    if sc.COUNTS["host_records"]:
+        fail("a record took the host sketcher")
+    small = recs[-12:]
+    sc.reset_counts()
+    got = sc.sketch_records_torch(small, K, W, "cuda", slot_cap=2)
+    _same(got, small, "forced overflow")
+    if sc.COUNTS["exact_runs"] < 1 or sc.COUNTS["window"] < 1:
+        fail(f"slot_cap=2 did not take the exact path: {sc.COUNTS}")
+    say(f"   forced overflow (slot_cap=2): exact through kernel 3, counts {json.dumps(sc.COUNTS)}")
+
+
+# -- phase 5: end to end ---------------------------------------------------------
+
+_ASCII = np.frombuffer(b"ACGTN", dtype=np.uint8)
+
+
+def _fasta(path: str, names: list[str], seqs: list[np.ndarray], width: int = 80) -> None:
+    with open(path, "wb") as fh:
+        for name, c in zip(names, seqs):
+            s = _ASCII[c]
+            full = s.shape[0] // width
+            body = np.empty((full, width + 1), dtype=np.uint8)
+            body[:, :width] = s[: full * width].reshape(full, width)
+            body[:, width] = ord("\n")
+            fh.write(b">" + name.encode() + b"\n" + body.tobytes())
+            if s.shape[0] > full * width:
+                fh.write(s[full * width :].tobytes() + b"\n")
+
+
+def genome(rng, sizes: list[int]) -> list[np.ndarray]:
+    """Chromosomes of seeded random bases with ~1% of bases in N gaps of
+    100-5,000 bp, homopolymers, microsatellites and satellite arrays."""
+    chroms = []
+    for n in sizes:
+        c = rng.integers(0, 4, size=n, dtype=np.uint8)
+
+        def spots(count, longest):
+            return rng.integers(0, n - longest, size=count)
+
+        for s in spots(n // 250_000, 5000):
+            c[s : s + int(rng.integers(100, 5001))] = 4
+        for s in spots(n // 50_000, 60):
+            c[s : s + int(rng.integers(10, 61))] = rng.integers(0, 4)
+        for s in spots(n // 50_000, 3000):
+            unit = rng.integers(0, 4, size=int(rng.integers(1, 7)), dtype=np.uint8)
+            ln = int(rng.integers(20, 301)) if rng.random() < 0.95 else int(rng.integers(1000, 3001))
+            c[s : s + ln] = np.resize(unit, ln)
+        for s in spots(n // 5_000_000 + 1, 30_000):
+            unit = rng.integers(0, 4, size=int(rng.integers(10, 101)), dtype=np.uint8)
+            ln = int(rng.integers(3000, 30_001))
+            c[s : s + ln] = np.resize(unit, ln)
+        chroms.append(c)
+    return chroms
+
+
+def _revcomp(c: np.ndarray) -> np.ndarray:
+    r = c[::-1].copy()
+    ok = r < 4
+    r[ok] = 3 - r[ok]
+    return r
+
+
+def assemblies(work: str, chroms: list[np.ndarray], rng, n_contigs: int) -> None:
+    """ref1 = the chromosomes, ref2 = 0.1% substitutions, target = shuffled
+    contigs, a quarter reverse-complemented, some with terminal Ns."""
+    names = [f"chr{i + 1}" for i in range(len(chroms))]
+    _fasta(os.path.join(work, "ref1.fa"), names, chroms)
+    subs = []
+    for c in chroms:
+        c2 = c.copy()
+        idx = rng.choice(c.shape[0], c.shape[0] // 1000, replace=False)
+        idx = idx[c2[idx] < 4]
+        c2[idx] = (c2[idx] + rng.integers(1, 4, size=idx.shape[0])) % 4
+        subs.append(c2)
+    _fasta(os.path.join(work, "ref2.fa"), names, subs)
+    total = sum(c.shape[0] for c in chroms)
+    contigs = []
+    for c in chroms:
+        m = max(1, round(n_contigs * c.shape[0] / total))
+        cuts = np.sort(rng.choice(np.arange(1, c.shape[0]), m - 1, replace=False))
+        for a, b in zip(np.concatenate([[0], cuts]), np.concatenate([cuts, [c.shape[0]]])):
+            piece = c[a:b].copy()
+            if rng.random() < 0.25:
+                piece = _revcomp(piece)
+            if rng.random() < 0.1:
+                t = int(rng.integers(1, 50))
+                if rng.random() < 0.5:
+                    piece[:t] = 4
+                else:
+                    piece[-t:] = 4
+            contigs.append(piece)
+    order = rng.permutation(len(contigs))
+    _fasta(os.path.join(work, "target.fa"), [f"contig{i}" for i in range(len(order))],
+           [contigs[i] for i in order])
+
+
+def _run(cmd: list[str], cwd: str) -> tuple[float, str]:
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.monotonic()
+    res = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, text=True, timeout=900)
+    wall = time.monotonic() - t0
+    if res.returncode != 0:
+        fail(f"{' '.join(cmd[:4])} exited {res.returncode}:\n{res.stderr[-4000:]}")
+    return wall, res.stdout
+
+
+def _stages(out: str) -> list[str]:
+    lines = out.splitlines()
+    if "stage\twall_s\tpeak_rss_kb" not in lines:
+        return []
+    i = lines.index("stage\twall_s\tpeak_rss_kb")
+    return [ln for ln in lines[i + 1 :] if ln.count("\t") == 2 and not ln.startswith("sketch_counts")]
+
+
+def e2e(sizes: list[int], n_contigs: int) -> dict[str, int]:
+    """Phase 5: the port's assemble against the JAX package's host path."""
+    rng = np.random.default_rng(5)
+    with tempfile.TemporaryDirectory(prefix="ntjoin_smoke_") as tmp:
+        port, ref = os.path.join(tmp, "port"), os.path.join(tmp, "ref")
+        os.makedirs(port)
+        os.makedirs(ref)
+        t0 = time.monotonic()
+        assemblies(port, genome(rng, sizes), rng, n_contigs)
+        for fa in ("ref1.fa", "ref2.fa", "target.fa"):
+            os.link(os.path.join(port, fa), os.path.join(ref, fa))
+        say(f"== e2e: {sum(sizes)} bp genome in {len(sizes)} chromosomes, written in "
+            f"{time.monotonic() - t0:.1f} s")
+        args = ["target=target.fa", "references=ref1.fa ref2.fa", "reference_weights=2 2",
+                f"k={K}", f"w={W}", "n=2", "agp=True", "time=True", "prefix=e2e"]
+        host = "native" if native.available() else "numpy"
+        p_wall, p_out = _run([sys.executable, "-m", "ntjoin_tpu_torch.cli", "assemble", "-B",
+                              "backend=cuda", *args], port)
+        r_wall, r_out = _run([sys.executable, "-m", "ntjoin_tpu.cli", "assemble", "-B",
+                              f"backend={host}", "index_backend=host", *args], ref)
+        want = [f"{fa}{ext}" for fa in ("ref1.fa", "ref2.fa", "target.fa")
+                for ext in (".fai", f".k{K}.w{W}.tsv")]
+        want += ["e2e.path", "e2e.mx.dot", "e2e.agp", f"e2e.target.fa.k{K}.w{W}.tsv.unassigned.bed"]
+        want += [f"target.fa.k{K}.w{W}.n2.{p}.scaffolds.fa" for p in ("assigned", "unassigned", "all")]
+        # every artifact the JAX run made (inputs and stage timings aside)
+        made = {f for f in os.listdir(ref) if not f.endswith((".time", ".fa")) or "scaffolds" in f}
+        made |= set(want)
+        for f in sorted(made):
+            a, b = os.path.join(port, f), os.path.join(ref, f)
+            if not (os.path.exists(a) and os.path.exists(b)):
+                fail(f"artifact {f} missing (port {os.path.exists(a)}, JAX host {os.path.exists(b)})")
+            if not filecmp.cmp(a, b, shallow=False):
+                fail(f"artifact {f} differs between the port and the JAX host path")
+        with open(os.path.join(port, "e2e.path"), encoding="utf-8") as fh:
+            joins = sum(1 for ln in fh if ln.startswith("ntJoin"))
+        if joins == 0:
+            fail("no scaffold joined: the e2e run did no work")
+        say(f"   {len(made)} artifacts byte-equal ({', '.join(sorted(made))})")
+        say(f"   {joins} scaffolds in e2e.path")
+        say(f"   port (backend=cuda) wall {p_wall:.3f} s; stages:")
+        for ln in _stages(p_out):
+            say("     " + ln)
+        say(f"   JAX package (backend={host}, index_backend=host) wall {r_wall:.3f} s; stages:")
+        for ln in _stages(r_out):
+            say("     " + ln)
+        counts = next((json.loads(ln.split("\t", 1)[1]) for ln in p_out.splitlines()
+                       if ln.startswith("sketch_counts\t")), None)
+        if counts is None:
+            fail("the port printed no sketch counts")
+        say(f"   port counts: {json.dumps(counts)}")
+        return counts
+
+
+def main() -> int:
+    smi = card()
+    build()
+    times = kernels()
+    sketch()
+    counts = e2e([24_000_000, 22_000_000, 20_000_000, 18_000_000, 16_000_000], 2000)
+    for name in sc.KERNELS:
+        if counts[name] < 1:
+            fail(f"kernel {name} was not launched on the main path")
+    if counts["host_records"] != 0:
+        fail(f"{counts['host_records']} records took the host sketcher")
+    if "jax" in sys.modules:
+        fail("JAX was imported")
+    say(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCES[name][0],
+         "replaces": SOURCES[name][1], "launches": counts[name], **times[name]}
+        for name in sc.KERNELS
+    ]}))
+    say(smi)
+    say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

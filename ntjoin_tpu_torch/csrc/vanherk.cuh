@@ -1,0 +1,93 @@
+// Per-thread Van Herk / Gil-Werman sliding-window argmin, shared by the
+// window/emission kernel (window_emit.cu) and the exact window kernel
+// (window.cu).
+//
+// One thread owns one chunk column hcol of the end-indexed hash array
+// h (rows, hC) and one column scol of the scratch arrays (w, sC).  Element s
+// of the chunk (s in [0, L + w - 1)) is the k-mer at
+// row off + s; window j (j in [0, L)) is elements [j, j + w - 1].  Order is
+// lexicographic on (unsigned hash, s), so ties go to the leftmost position.
+//
+// The elements are cut into blocks of w.  A window starting at block offset t
+// is the suffix [t, w) of its block plus the prefix [0, t) of the next one:
+// a backward pass stores the block's suffix minima in scratch, and a forward
+// pass over the next block keeps the running prefix minimum and combines.
+// Every element is read twice and the scratch written and read once, so the
+// work per window is constant whatever the input: an equal-hash run (a
+// homopolymer), where the leftmost argmin leaves every window, costs no more
+// than random sequence.  All threads of a chunk grid walk the same (t, block)
+// in step, so scratch[t * sC + scol] and h[row * hC + hcol] accesses of a warp
+// fall on neighbouring words when neighbouring threads own neighbouring
+// columns.
+#pragma once
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace vanherk {
+
+// Suffix minima of elements [base, base + w) into the scratch rows 0..w-1.
+__device__ __forceinline__ void suffix_pass(const uint64_t* __restrict__ h, int64_t hC,
+                                            int64_t hcol, int64_t off, int64_t n_el,
+                                            int w, int64_t base, uint64_t* __restrict__ sk,
+                                            int32_t* __restrict__ sp, int64_t sC,
+                                            int64_t scol) {
+  uint64_t key = ~0ull;
+  int32_t arg = INT32_MAX;
+  for (int t = w - 1; t >= 0; --t) {
+    const int64_t e = base + t;
+    if (e < n_el) {
+      const uint64_t v = h[(off + e) * hC + hcol];
+      if (v <= key) {  // the later-scanned element is further left: wins ties
+        key = v;
+        arg = (int32_t)e;
+      }
+    }
+    sk[t * sC + scol] = key;
+    sp[t * sC + scol] = arg;
+  }
+}
+
+// Calls sink(j, key, s) for the windows j of one block, [base, base + w)
+// clipped to [0, L), in order, with the window's minimum hash and its
+// element index s.  Blocks are independent: a thread can take one or all.
+template <class Sink>
+__device__ void scan_block(const uint64_t* __restrict__ h, int64_t hC, int64_t hcol,
+                           int64_t L, int w, int64_t off, int64_t base,
+                           uint64_t* __restrict__ sk, int32_t* __restrict__ sp, int64_t sC,
+                           int64_t scol, Sink& sink) {
+  const int64_t n_el = L + w - 1;
+  const int64_t next = base + w;
+  suffix_pass(h, hC, hcol, off, n_el, w, base, sk, sp, sC, scol);
+  uint64_t pkey = ~0ull;
+  int32_t parg = INT32_MAX;
+  for (int t = 0; t < w; ++t) {
+    const int64_t j = base + t;
+    if (j >= L) break;
+    uint64_t key = sk[t * sC + scol];
+    int32_t arg = sp[t * sC + scol];
+    if (pkey < key) {  // the suffix holds the earlier rows: it wins ties
+      key = pkey;
+      arg = parg;
+    }
+    sink(j, key, arg);
+    const int64_t e = next + t;
+    if (e < n_el) {
+      const uint64_t v = h[(off + e) * hC + hcol];
+      if (v < pkey) {
+        pkey = v;
+        parg = (int32_t)e;
+      }
+    }
+  }
+}
+
+// Every window j in [0, L) of the chunk, in order.
+template <class Sink>
+__device__ void scan(const uint64_t* __restrict__ h, int64_t hC, int64_t hcol, int64_t L,
+                     int w, int64_t off, uint64_t* __restrict__ sk, int32_t* __restrict__ sp,
+                     int64_t sC, int64_t scol, Sink& sink) {
+  for (int64_t base = 0; base < L; base += w)
+    scan_block(h, hC, hcol, L, w, off, base, sk, sp, sC, scol, sink);
+}
+
+}  // namespace vanherk

@@ -1,0 +1,693 @@
+"""Minimizer sketch on an NVIDIA GPU: three CUDA kernels and their plain
+PyTorch versions.  Port of ``ntjoin_tpu/ops/sketch_pallas.py``.
+
+Pipeline of one batch (``sketch_fused_torch``):
+
+1. Layout.  Records are joined on the host with k-1 invalid separator bases
+   into one int8 stream, padded with invalid bases, and copied to the device.
+   The stream is cut into C chunks of L k-mer starts; chunk c reads
+   ``flat[c*L + r]`` for rows r in [0, L + w + k - 2), so each chunk owns its
+   windows whole (the halo of w + k - 2 rows overlaps the next chunk).
+2. Hash (kernel 1, ``csrc/hash.cu``): end-indexed canonical ntHash2 and a
+   k-mer valid flag, (rows, C).
+3. Flags (torch): a window is valid when all w k-mers are; the first valid
+   window after an invalid one is forced to emit (a record's first window).
+4. Window/emission (kernel 2, ``csrc/window_emit.cu``): per-chunk lists of
+   emitted (position, canonical hash), bounded by a capacity, plus the true
+   per-chunk counts.
+5. Compaction (torch): exclusive cumsum of the counts and one gather.
+6. For the chunks whose list overflowed, the exact window op (kernel 3,
+   ``csrc/window.cu``) gives every window's argmin; their emission mask is
+   compacted with ``torch.nonzero`` and merged into the stream.
+
+Emissions come out in stream order; a chunk's first window repeats the
+previous chunk's last argmin at most once, and that duplicate is dropped.
+
+Hashes are int64 tensors holding the uint64 bits (see ``u64``).  Each kernel
+wrapper runs the plain version for a CPU tensor and launches its kernel for a
+CUDA tensor; the kernels are built with nvcc on first use into ``_build/``.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from ntjoin_tpu.constants import CODE_INVALID, SEEDS, SROL_PERIOD
+from ntjoin_tpu.ops.nthash_np import Sketch, _window_lexmin, canonical_hashes
+from ntjoin_tpu.ops.nthash_np import derive_hash as derive_hash_np
+from ntjoin_tpu_torch.ops import u64
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+LIB_PATH = os.path.join(_PKG, "_build", "libntjoin_cuda.so")
+
+# Kernel launches by op, calls of each op's plain version, records the host
+# sketcher took, and runs of the exact window path.  Plain counters so that
+# a run can show which code served it; ``reset_counts`` zeroes them.
+KERNELS = ("hash", "window_emit", "window")
+COUNTS: dict[str, int] = {}
+
+
+def reset_counts() -> None:
+    COUNTS.clear()
+    for name in KERNELS:
+        COUNTS[name] = 0
+        COUNTS[name + "_plain"] = 0
+    COUNTS["host_records"] = 0
+    COUNTS["exact_runs"] = 0
+
+
+reset_counts()
+
+# Per-batch bases: the device holds ~40 B per base of intermediates on the
+# exact path, so 2^28 bases stay near 10 GB.  A larger record gets a batch
+# of its own.
+BATCH_BASES = 1 << 28
+# Chunks: at least 4 halos of windows per chunk (halo work under 25%), and no
+# more chunks than the card can use threads for.
+_MAX_CHUNKS = 1 << 16
+# Junction work of an N-containing record beyond max(this, n // 5) windows
+# sends the record to the host sketcher (see sketch_records_torch).
+_PATCH_WORK_MIN = 1 << 20
+
+
+# -- seed tables and the JAX package's chunk layout ----------------------------
+
+
+def seed_tables(k: int) -> np.ndarray:
+    """(4, 4) int64 tables indexed by base code, rows (seed_in, seed_out,
+    seed_rc_out_rot, seed_rc_in): the same pre-rotated terms as
+    ``sketch_pallas._tables``, so both recurrences are
+    ``state = rot1(state) ^ m``."""
+    seed = _seeds()
+    rc = seed.flip(0)  # seed of the complement base 3 - c
+    return torch.stack([
+        seed, u64.srol_n(seed, k), u64.srol_n(rc, SROL_PERIOD - 1), u64.srol_n(rc, k - 1),
+    ]).numpy()
+
+
+def _seeds() -> torch.Tensor:
+    """The four base seeds (A, C, G, T) as int64."""
+    return torch.tensor([u64.s64(v) for v in SEEDS], dtype=torch.int64)
+
+
+def from_jax_chunks(lo, hi) -> torch.Tensor:
+    """JAX uint32 lo/hi planes (rows, SUB, LANE) -> int64 (rows, SUB*LANE)."""
+    lo = np.asarray(lo, dtype=np.uint64)
+    hi = np.asarray(hi, dtype=np.uint64)
+    x = (lo | (hi << np.uint64(32))).view(np.int64)
+    return torch.from_numpy(x.reshape(x.shape[0], -1).copy())
+
+
+def to_jax_chunks(x: torch.Tensor, lane: int = 128):
+    """Inverse of ``from_jax_chunks``: int64 (rows, C) -> uint32 lo, hi of
+    shape (rows, C // lane, lane)."""
+    u = u64.as_u64(x).reshape(x.shape[0], -1, lane)
+    return (u & np.uint64(0xFFFFFFFF)).astype(np.uint32), (u >> np.uint64(32)).astype(np.uint32)
+
+
+# -- building and loading the kernels ------------------------------------------
+
+_LIB = None
+_TABLES: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+
+def build() -> tuple[float, str]:
+    """Compile ``csrc/*.cu`` with nvcc into ``LIB_PATH`` unless the library is
+    newer than every source.  Returns (seconds spent, nvcc's report)."""
+    srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+    deps = srcs + glob.glob(os.path.join(_CSRC, "*.cuh"))
+    if os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= max(
+        os.path.getmtime(p) for p in deps
+    ):
+        return 0.0, ""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("cannot build the CUDA kernels: no CUDA toolkit found")
+    os.makedirs(os.path.dirname(LIB_PATH), exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [
+        os.path.join(CUDA_HOME, "bin", "nvcc"),
+        "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *srcs,
+    ]
+    t0 = time.monotonic()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader sees old or new
+    return time.monotonic() - t0, res.stderr
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        build()
+        lib = ctypes.CDLL(LIB_PATH)
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        sigs = {
+            "nj_hash": [p, i64, i64, i64, i32, p, p, p, p],
+            "nj_window_emit": [p, p, i64, i64, i32, i64, i64, p, p, p, p, p, p],
+            "nj_window": [p, i64, i64, i32, i64, p, i64, p, p, p, p],
+        }
+        for name, args in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _launched(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+    COUNTS[name] += 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str) -> None:
+    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: want contiguous {dtype} {shape}, got "
+            f"{'' if t.is_contiguous() else 'non-contiguous '}{t.dtype} {tuple(t.shape)}"
+        )
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+# -- layout ---------------------------------------------------------------------
+
+
+def layout(n: int, k: int, w: int) -> tuple[int, int]:
+    """(C, L) for a stream of n bases: L k-mer starts per chunk, with at
+    least 4 halos (w + k - 2 rows) per chunk where the input allows."""
+    nk = max(n - k + 1, 1)
+    c = max(1, min(_MAX_CHUNKS, nk // (4 * max(w + k - 2, 1))))
+    return c, -(-nk // c)
+
+
+def _slot_cap(L: int, w: int) -> int:
+    """Per-chunk emission capacity: about 4 emissions per w windows at the
+    densest for non-repeat sequence (~2 on average), plus forced record
+    starts."""
+    return 4 * -(-L // w) + 16
+
+
+def _chunk_view(flat: torch.Tensor, L: int, C: int, rows: int) -> torch.Tensor:
+    """(rows, C) view of the stream: column c, row r is flat[c*L + r]."""
+    return flat.as_strided((rows, C), (1, L))
+
+
+# -- op 1: hash -----------------------------------------------------------------
+
+
+def hash_chunked_ref(codes_rc: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel 1: int8 codes (rows, C) -> end-indexed
+    canonical hash (int64) and k-mer valid flag (int8), both (rows, C).
+
+    Closed form instead of the recurrence: with invalid bases seeded 0, the
+    rolling state at row r is the xor over the k bases ending at r of
+    ``srol^(k-1-t)(seed[b])`` (forward) and ``srol^t(seed[3-b])`` (reverse),
+    t the base's offset in the k-mer; rows before 0 contribute nothing.
+    """
+    COUNTS["hash_plain"] += 1
+    rows, C = codes_rc.shape
+    dev = codes_rc.device
+    code = codes_rc.to(torch.uint8).long().clamp_(max=CODE_INVALID)
+    pad = torch.full((k - 1, C), CODE_INVALID, dtype=torch.long, device=dev)
+    cp = torch.cat([pad, code])  # cp[r + t] = base at offset t of the k-mer ending at r
+    zero = torch.zeros(1, dtype=torch.int64)  # the seed of an invalid base
+    seed = torch.cat([_seeds(), zero])
+    rc = torch.cat([_seeds().flip(0), zero])
+    fwd = torch.zeros((rows, C), dtype=torch.int64, device=dev)
+    rev = torch.zeros_like(fwd)
+    for t in range(k):
+        b = cp[t : t + rows]
+        fwd ^= u64.srol_n(seed, k - 1 - t).to(dev)[b]
+        rev ^= u64.srol_n(rc, t).to(dev)[b]
+    bad = torch.cat([torch.ones((k - 1, C), dtype=torch.int32, device=dev),
+                     (code == CODE_INVALID).to(torch.int32)])
+    cs = torch.cat([torch.zeros((1, C), dtype=torch.int32, device=dev),
+                    bad.cumsum(0, dtype=torch.int32)])
+    val = (cs[k : k + rows] == cs[:rows]).to(torch.int8)
+    return fwd + rev, val
+
+
+def hash_chunked(flat: torch.Tensor, L: int, C: int, rows: int,
+                 k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Op 1 on the int8 stream ``flat`` (length >= (C-1)*L + rows): kernel
+    1 for a CUDA tensor, ``hash_chunked_ref`` of the chunk view for a CPU
+    one."""
+    if flat.dim() != 1 or flat.shape[0] < (C - 1) * L + rows:
+        raise ValueError(f"stream of {tuple(flat.shape)} too short for C={C} L={L} rows={rows}")
+    if not _on_cuda(flat):
+        return hash_chunked_ref(_chunk_view(flat, L, C, rows), k)
+    _check(flat, torch.int8, (flat.shape[0],), "hash_chunked flat")
+    dev = flat.device
+    key = (k, dev)
+    if key not in _TABLES:
+        _TABLES[key] = torch.from_numpy(seed_tables(k)).to(dev)
+    h = torch.empty((rows, C), dtype=torch.int64, device=dev)
+    val = torch.empty((rows, C), dtype=torch.int8, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().nj_hash(flat.data_ptr(), L, C, rows, k, _TABLES[key].data_ptr(),
+                             h.data_ptr(), val.data_ptr(), _stream(flat))
+    _launched(err, "hash")
+    return h, val
+
+
+# -- window ops -------------------------------------------------------------------
+
+
+def _argmin_core(h: torch.Tensor, L: int, w: int, off: int,
+                 chunks: torch.Tensor) -> torch.Tensor:
+    """Leftmost (unsigned hash, position) argmin of every window of the
+    listed chunks, by log-step doubling: level m holds the lexmin of
+    [i, i + 2^m); lexmin is idempotent, so two overlapping power-of-two spans
+    cover w."""
+    n_el = L + w - 1
+    key = h[off : off + n_el][:, chunks]
+    pos = torch.arange(n_el, dtype=torch.int64, device=h.device)[:, None] + chunks * L
+    span = 1
+    while 2 * span <= w:
+        n = key.shape[0] - span
+        a_k, b_k, a_p, b_p = key[:n], key[span : span + n], pos[:n], pos[span : span + n]
+        take_b = u64.ult(b_k, a_k) | ((b_k == a_k) & (b_p < a_p))
+        key = torch.where(take_b, b_k, a_k)
+        pos = torch.where(take_b, b_p, a_p)
+        span *= 2
+    a_k, a_p = key[:L], pos[:L]
+    b_k, b_p = key[w - span : w - span + L], pos[w - span : w - span + L]
+    take_b = u64.ult(b_k, a_k) | ((b_k == a_k) & (b_p < a_p))
+    return torch.where(take_b, b_p, a_p)
+
+
+def _emit_mask(am: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
+    """Window emits: valid, and forced or its argmin moved."""
+    prev = torch.cat([torch.full_like(am[:1], -1), am[:-1]])
+    return ((flags & 1) != 0) & (((flags & 2) != 0) | (am != prev))
+
+
+def _hash_at(h: torch.Tensor, pos: torch.Tensor, chunk: torch.Tensor, L: int,
+             off: int) -> torch.Tensor:
+    return h[pos - chunk * L + off, chunk]
+
+
+def _all_chunks(h: torch.Tensor) -> torch.Tensor:
+    return torch.arange(h.shape[1], dtype=torch.int64, device=h.device)
+
+
+def window_argmin_ref(h: torch.Tensor, L: int, w: int, off: int,
+                      chunks: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of kernel 3: (L, len(chunks)) int64 stream position
+    c*L + s of the leftmost minimal hash of every window of each listed
+    chunk c (elements at rows off + s); all chunks by default."""
+    COUNTS["window_plain"] += 1
+    return _argmin_core(h, L, w, off, _all_chunks(h) if chunks is None else chunks)
+
+
+def window_emit_ref(h: torch.Tensor, flags: torch.Tensor, L: int, w: int, off: int,
+                    cap: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of kernel 2: per-chunk emission lists (pos, hash), each
+    (cap, C) and padded with -1 / 0, and the true per-chunk counts (C,)."""
+    COUNTS["window_emit_plain"] += 1
+    C = h.shape[1]
+    am = _argmin_core(h, L, w, off, _all_chunks(h))
+    emit = _emit_mask(am, flags)
+    count = emit.sum(0)
+    rank = emit.cumsum(0) - 1
+    row, chunk = torch.nonzero(emit & (rank < cap), as_tuple=True)
+    pos = torch.full((cap, C), -1, dtype=torch.int64, device=h.device)
+    hsh = torch.zeros((cap, C), dtype=torch.int64, device=h.device)
+    slot = rank[row, chunk]
+    p = am[row, chunk]
+    pos[slot, chunk] = p
+    hsh[slot, chunk] = _hash_at(h, p, chunk, L, off)
+    return pos, hsh, count
+
+
+def _scratch(w: int, n: int, dev: torch.device):
+    return (torch.empty((w, n), dtype=torch.int64, device=dev),
+            torch.empty((w, n), dtype=torch.int32, device=dev))
+
+
+def _check_window_args(h: torch.Tensor, L: int, w: int, off: int) -> None:
+    if h.dim() != 2 or h.shape[0] < off + L + w - 1:
+        raise ValueError(f"hash rows {tuple(h.shape)} < off + L + w - 1 = {off + L + w - 1}")
+    if L + w >= 1 << 31:
+        raise ValueError(f"chunk length L={L} too long for int32 window indices")
+
+
+def window_emit(h: torch.Tensor, flags: torch.Tensor, L: int, w: int, off: int,
+                cap: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Op 2: kernel 2 for CUDA tensors, ``window_emit_ref`` for CPU ones."""
+    _check_window_args(h, L, w, off)
+    if not _on_cuda(h):
+        return window_emit_ref(h, flags, L, w, off, cap)
+    C = h.shape[1]
+    _check(h, torch.int64, tuple(h.shape), "window_emit h")
+    _check(flags, torch.int8, (L, C), "window_emit flags")
+    if flags.device != h.device:
+        raise ValueError(f"flags on {flags.device}, hashes on {h.device}")
+    dev = h.device
+    sk, sp = _scratch(w, C, dev)
+    pos = torch.empty((cap, C), dtype=torch.int64, device=dev)
+    hsh = torch.empty((cap, C), dtype=torch.int64, device=dev)
+    count = torch.empty((C,), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().nj_window_emit(
+            h.data_ptr(), flags.data_ptr(), L, C, w, off, cap, sk.data_ptr(),
+            sp.data_ptr(), pos.data_ptr(), hsh.data_ptr(), count.data_ptr(), _stream(h),
+        )
+    _launched(err, "window_emit")
+    return pos, hsh, count
+
+
+def window_argmin(h: torch.Tensor, L: int, w: int, off: int,
+                  chunks: torch.Tensor | None = None) -> torch.Tensor:
+    """Op 3 over the listed chunks (all by default): kernel 3 for CUDA
+    tensors, ``window_argmin_ref`` for CPU ones."""
+    _check_window_args(h, L, w, off)
+    if not _on_cuda(h):
+        return window_argmin_ref(h, L, w, off, chunks)
+    C = h.shape[1]
+    chunks = _all_chunks(h) if chunks is None else chunks
+    n_sel = chunks.shape[0]
+    _check(h, torch.int64, tuple(h.shape), "window_argmin h")
+    _check(chunks, torch.int64, (n_sel,), "window_argmin chunks")
+    if chunks.device != h.device:
+        raise ValueError(f"chunks on {chunks.device}, hashes on {h.device}")
+    dev = h.device
+    am = torch.empty((L, n_sel), dtype=torch.int64, device=dev)
+    if n_sel == 0:
+        return am
+    sk, sp = _scratch(w, n_sel * -(-L // w), dev)  # one column per (chunk, block)
+    with torch.cuda.device(dev):
+        err = _lib().nj_window(h.data_ptr(), L, C, w, off, chunks.data_ptr(), n_sel,
+                               sk.data_ptr(), sp.data_ptr(), am.data_ptr(), _stream(h))
+    _launched(err, "window")
+    return am
+
+
+# -- the fused batch sketch ---------------------------------------------------------
+
+
+def window_flags(val: torch.Tensor, L: int, w: int, off: int) -> torch.Tensor:
+    """(L, C) int8: bit0 = all w k-mers of the window valid, bit1 = first
+    valid window after an invalid one (a record's first window)."""
+    C = val.shape[1]
+    v = val[off : off + L + w - 1].to(torch.int32)
+    cs = torch.cat([torch.zeros((1, C), dtype=torch.int32, device=val.device),
+                    v.cumsum(0, dtype=torch.int32)])
+    valid = (cs[w : w + L] - cs[:L]) == w
+    first = valid.clone()
+    first[1:] &= ~valid[:-1]
+    return valid.to(torch.int8) | (first.to(torch.int8) << 1)
+
+
+def _compact_lists(pos: torch.Tensor, hsh: torch.Tensor, count: torch.Tensor, total: int):
+    """Per-chunk lists -> one stream in (chunk, slot) order."""
+    C = pos.shape[1]
+    incl = count.cumsum(0)
+    q = torch.arange(total, dtype=torch.int64, device=pos.device)
+    chunk = torch.searchsorted(incl, q, right=True)
+    src = (q - (incl - count)[chunk]) * C + chunk
+    return pos.reshape(-1)[src], hsh.reshape(-1)[src]
+
+
+def _compact_exact(am: torch.Tensor, flags: torch.Tensor, h: torch.Tensor,
+                   chunks: torch.Tensor, L: int, off: int):
+    """Every window's argmin of the listed chunks -> their emissions in
+    (chunk, window) order."""
+    i, j = torch.nonzero(_emit_mask(am, flags[:, chunks]).t(), as_tuple=True)
+    pos = am[j, i]
+    return pos, _hash_at(h, pos, chunks[i], L, off)
+
+
+def sketch_fused_torch(flat: torch.Tensor, n: int, k: int, w: int,
+                       slot_cap: int | None = None,
+                       plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sketch the stream ``flat`` (int8 codes on the device, its first n
+    bases the data, invalid bases after, length >= C*L + w + k - 2 for
+    ``layout(n, k, w)``).
+
+    Returns (positions, canonical hashes) of every emission, int64, in
+    stream order with chunk-seam duplicates dropped.  Chunks with more
+    emissions than the capacity take the exact path, counted in
+    ``COUNTS["exact_runs"]`` once per call.  ``slot_cap`` overrides the
+    per-chunk emission capacity; ``plain`` runs the plain versions of the ops
+    even on a CUDA device.
+    """
+    C, L = layout(n, k, w)
+    off = k - 1
+    rows = L + w + k - 2
+    if plain:
+        h, val = hash_chunked_ref(_chunk_view(flat, L, C, rows), k)
+    else:
+        h, val = hash_chunked(flat, L, C, rows, k)
+    flags = window_flags(val, L, w, off)
+    del val
+    cap = _slot_cap(L, w) if slot_cap is None else slot_cap
+    spos, shsh, count = (window_emit_ref if plain else window_emit)(h, flags, L, w, off, cap)
+    over = count > cap
+    count = count.masked_fill(over, 0)
+    n_over, total = torch.stack([over.sum(), count.sum()]).tolist()
+    pos, canon = _compact_lists(spos, shsh, count, total)
+    if n_over:
+        # exact path for the overflowed chunks, merged back in stream order
+        COUNTS["exact_runs"] += 1
+        chunks = torch.nonzero(over).flatten()
+        am = (window_argmin_ref if plain else window_argmin)(h, L, w, off, chunks)
+        xpos, xcanon = _compact_exact(am, flags, h, chunks, L, off)
+        pos, order = torch.sort(torch.cat([pos, xpos]), stable=True)
+        canon = torch.cat([canon, xcanon])[order]
+    keep = torch.ones_like(pos, dtype=torch.bool)
+    keep[1:] = pos[1:] != pos[:-1]
+    return pos[keep], canon[keep]
+
+
+# -- N segmentation (host) ------------------------------------------------------------
+#
+# The sketch is the set of distinct window argmins.  A record with interior
+# N runs splits into windows inside one long clean segment (sketched on the
+# device, the segments as pseudo-records) and windows across segment
+# junctions, at most ~2(w-1) per junction, computed here from the junction
+# neighbourhoods' hashes.  Their union, merged by position, is exact.
+
+
+def _invalid_runs(codes: np.ndarray) -> list[tuple[int, int]]:
+    """(start, end) runs of invalid bases."""
+    inv = np.asarray(codes) >= CODE_INVALID
+    if not inv.any():
+        return []
+    d = np.diff(inv.astype(np.int8))
+    starts = np.flatnonzero(d == 1) + 1
+    ends = np.flatnonzero(d == -1) + 1
+    if inv[0]:
+        starts = np.concatenate([[0], starts])
+    if inv[-1]:
+        ends = np.concatenate([ends, [inv.shape[0]]])
+    return [(int(s), int(e)) for s, e in zip(starts, ends)]
+
+
+def _segments_of(n: int, runs: list[tuple[int, int]]) -> list[tuple[int, int]]:
+    """Maximal valid-base intervals: the complement of the invalid runs."""
+    segs = []
+    prev = 0
+    for s, e in runs:
+        if s > prev:
+            segs.append((prev, s))
+        prev = e
+    if prev < n:
+        segs.append((prev, n))
+    return segs
+
+
+def _patch_plan(n: int, runs: list[tuple[int, int]], k: int, w: int):
+    """(segments, k-mers per segment, their stream offsets, patch window
+    intervals, patch work).  Stream rank = index among the valid k-mers; a
+    window is device-covered iff it lies inside one segment of >= w+k-1
+    bases, and the patch intervals are the rest of [0, n_stream - w]."""
+    segs = _segments_of(n, runs)
+    nks = [max(0, (e - s) - k + 1) for s, e in segs]
+    offs = np.concatenate([[0], np.cumsum(nks)]).astype(np.int64)
+    n_stream = int(offs[-1])
+    if n_stream < w:
+        return segs, nks, offs, [], 0
+    inside = [
+        (int(offs[i]), int(offs[i]) + nks[i] - w)
+        for i, (s, e) in enumerate(segs)
+        if (e - s) >= (w + k - 1)
+    ]
+    patch_ivs = []
+    cur = 0
+    for a, b in inside:  # disjoint, ascending
+        if a > cur:
+            patch_ivs.append((cur, a - 1))
+        cur = max(cur, b + 1)
+    if cur <= n_stream - w:
+        patch_ivs.append((cur, n_stream - w))
+    work = sum(b - a + w for a, b in patch_ivs)
+    return segs, nks, offs, patch_ivs, work
+
+
+def _stream_slice(codes, k, segs, nks, offs, lo: int, hi: int):
+    """Canonical hashes and positions of the valid k-mers of ranks [lo, hi]."""
+    hs, ps = [], []
+    for i, (s, _) in enumerate(segs):
+        a = max(lo, int(offs[i]))
+        b = min(hi, int(offs[i]) + nks[i] - 1)
+        if nks[i] == 0 or a > b:
+            continue
+        la = a - int(offs[i])
+        canon, _ = canonical_hashes(np.asarray(codes[s + la : s + (b - int(offs[i])) + k]), k)
+        hs.append(canon)
+        ps.append(np.arange(s + la, s + la + canon.shape[0], dtype=np.int64))
+    if not hs:
+        return np.empty(0, np.uint64), np.empty(0, np.int64)
+    return np.concatenate(hs), np.concatenate(ps)
+
+
+def _patch_emissions(codes, k: int, w: int, segs, nks, offs, patch_ivs):
+    """Distinct argmins (positions, canonical hashes) of the patch windows."""
+    out_pos, out_canon = [], []
+    for a, b in patch_ivs:
+        h, pos = _stream_slice(codes, k, segs, nks, offs, a, b + w - 1)
+        arg = np.unique(_window_lexmin(h, w))
+        out_pos.append(pos[arg])
+        out_canon.append(h[arg])
+    if not out_pos:
+        return np.empty(0, np.int64), np.empty(0, np.uint64)
+    return np.concatenate(out_pos), np.concatenate(out_canon)
+
+
+def _host_sketch(codes: np.ndarray, k: int, w: int) -> Sketch:
+    from ntjoin_tpu.io.native import available, sketch_codes_native
+
+    if available():
+        return sketch_codes_native(codes, k, w)
+    from ntjoin_tpu.ops.nthash_np import sketch_codes
+
+    return sketch_codes(codes, k, w)
+
+
+_EMPTY = Sketch(np.empty(0, dtype=np.int64), np.empty(0, dtype=np.uint64))
+
+
+# -- batched multi-record entry --------------------------------------------------------
+
+
+def _sketch_batch(batch: list[np.ndarray], k: int, w: int, device: torch.device,
+                  slot_cap: int | None, plain: bool) -> list[Sketch]:
+    """Join the records with k-1 invalid bases, sketch the stream on the
+    device and split the emissions per record."""
+    lens = np.array([c.shape[0] for c in batch], dtype=np.int64)
+    offsets = np.concatenate([[0], np.cumsum(lens + k - 1)[:-1]]).astype(np.int64)
+    total = int(offsets[-1] + lens[-1] + k - 1)
+    if total - k + 1 < w:
+        return [_EMPTY] * len(batch)
+    C, L = layout(total, k, w)
+    host = torch.full((C * L + w + k - 2,), CODE_INVALID, dtype=torch.int8,
+                      pin_memory=device.type == "cuda")
+    hv = host.numpy()
+    for o, c in zip(offsets, batch):
+        hv[o : o + c.shape[0]] = c
+    flat = host.to(device, non_blocking=True)
+    pos, canon = sketch_fused_torch(flat, total, k, w, slot_cap, plain)
+    pos_np = pos.cpu().numpy()
+    hashes = u64.as_u64(u64.derive_hash(canon, k))
+    # emissions ascend and records are disjoint ascending ranges
+    bounds = np.append(np.searchsorted(pos_np, offsets), pos_np.shape[0])
+    return [
+        Sketch(positions=pos_np[a:b] - o, hashes=hashes[a:b]) if b > a else _EMPTY
+        for o, a, b in zip(offsets, bounds[:-1], bounds[1:])
+    ]
+
+
+def sketch_records_torch(codes_list: list[np.ndarray], k: int, w: int,
+                         device: str | torch.device = "cuda", *,
+                         slot_cap: int | None = None, plain: bool = False) -> list[Sketch]:
+    """Minimizer sketches of many records, bit-identical to
+    ``ntjoin_tpu.ops.nthash_np.sketch_codes`` on each.
+
+    N-free records go to the device whole; a record with N runs goes as its
+    long clean segments, and the windows across its junctions are sketched
+    on the host (``_patch_emissions``).  A record whose junction work would
+    rival its length is sketched whole on the host and counted in
+    ``COUNTS["host_records"]``.  Records are packed into device batches of
+    about ``BATCH_BASES`` bases.  ``slot_cap`` and ``plain`` pass to
+    ``sketch_fused_torch``.
+    """
+    device = torch.device(device)
+    out: list[Sketch] = [_EMPTY] * len(codes_list)
+    entries: list[tuple[int, int, np.ndarray]] = []  # (record, base, codes)
+    patch_plans = {}
+    for i, c in enumerate(codes_list):
+        c = np.asarray(c)
+        runs = _invalid_runs(c)
+        if not runs:
+            entries.append((i, 0, c))
+            continue
+        n = int(c.shape[0])
+        segs, nks, offs, patch_ivs, work = _patch_plan(n, runs, k, w)
+        if work > max(_PATCH_WORK_MIN, n // 5):
+            out[i] = _host_sketch(c, k, w)
+            COUNTS["host_records"] += 1
+            continue
+        entries.extend((i, s, c[s:e]) for s, e in segs if (e - s) >= (w + k - 1))
+        patch_plans[i] = (c, segs, nks, offs, patch_ivs)
+
+    batches: list[list[tuple[int, int, np.ndarray]]] = []
+    acc = 0
+    for ent in entries:
+        sz = int(ent[2].shape[0]) + k - 1
+        if not batches or acc + sz > BATCH_BASES:
+            batches.append([])
+            acc = 0
+        batches[-1].append(ent)
+        acc += sz
+    pieces: dict[int, list[tuple[int, Sketch]]] = {}
+    for b in batches:
+        sketches = _sketch_batch([e[2] for e in b], k, w, device, slot_cap, plain)
+        for (i, base, _), sk in zip(b, sketches):
+            pieces.setdefault(i, []).append((base, sk))
+
+    for i, got in pieces.items():
+        if i not in patch_plans:
+            out[i] = got[0][1]
+    for i, (c, segs, nks, offs, patch_ivs) in patch_plans.items():
+        ppos, pcanon = _patch_emissions(c, k, w, segs, nks, offs, patch_ivs)
+        parts = pieces.get(i, [])
+        pos = np.concatenate([base + sk.positions for base, sk in parts] + [ppos])
+        hsh = np.concatenate([sk.hashes for _, sk in parts] + [derive_hash_np(pcanon, k)])
+        if pos.shape[0] == 0:
+            continue
+        order = np.argsort(pos, kind="stable")
+        pos, hsh = pos[order], hsh[order]
+        keep = np.ones(pos.shape[0], dtype=bool)
+        keep[1:] = pos[1:] != pos[:-1]  # device/patch overlap
+        out[i] = Sketch(positions=pos[keep], hashes=hsh[keep])
+    return out
+
+
+def sketch_codes_torch(codes: np.ndarray, k: int, w: int,
+                       device: str | torch.device = "cuda", **kw) -> Sketch:
+    """Sketch of one record: ``sketch_records_torch([codes])[0]``."""
+    return sketch_records_torch([codes], k, w, device, **kw)[0]

@@ -1,0 +1,29 @@
+"""The PyTorch port and its chip smoke script import no JAX.
+
+Checked in a fresh interpreter: this test process has JAX loaded already
+(``conftest.py`` imports it)."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize(
+    "module",
+    ["ntjoin_tpu_torch", "ntjoin_tpu_torch.cli", "ntjoin_tpu_torch.ops.sketch_cuda",
+     "chip_smoke"],
+)
+def test_imports_no_jax(module):
+    code = (
+        f"import importlib, sys; importlib.import_module({module!r}); "
+        "jax = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')); "
+        "assert not jax, jax"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO),
+    )
+    assert res.returncode == 0, res.stderr
