@@ -7,15 +7,26 @@ with a non-zero exit and no result line:
 
 1. card     the CUDA device, and its name and power limit from nvidia-smi
 2. build    nvcc builds the kernels from ntjoin_tpu_torch/csrc
-3. kernels  each kernel against its plain PyTorch version on the card, on
-            2^27 seeded bases (k=32, w=1000) with N runs, a poly-C and an AC
-            microsatellite stretch; outputs bit-equal; CUDA-event times
-4. sketch   sketch_records_torch on a multi-record batch with N runs against
+3. kernels  each sketch kernel against its plain PyTorch version on the
+            card, on 2^27 seeded bases (k=32, w=1000) with N runs, a poly-C
+            and an AC microsatellite stretch; outputs bit-equal; CUDA-event
+            times
+4. copy     the copy kernel against its plain version (``copy_``) on the
+            profiler's 546 MB array of 32-bit words; bit-equal; GB/s
+5. sketch   sketch_records_torch on a multi-record batch with N runs against
             the host oracle, and one forced overflow through kernel 3
-5. e2e      `python -m ntjoin_tpu_torch.cli assemble backend=cuda` on a
-            ~100 Mbp synthetic genome (two references, a 2,000-contig
-            target) against `python -m ntjoin_tpu.cli assemble
-            backend=native index_backend=host`: every artifact byte-equal
+6. prof     `python -m ntjoin_tpu_torch.kernel_prof` at 2^27 bases, every
+            stage: each must print its JSON line, forwarded here; its
+            launch counts are the copy kernel's main path
+7. graph    the device shared index, graph build, components and path
+            passes on three synthetic sketches of ~2,000,000 minimizers each
+            (a 1 Gbp genome at w=1000) against the host SharedIndex,
+            build_graph, components and find_paths: every array equal
+8. e2e      `python -m ntjoin_tpu_torch.cli assemble backend=cuda` (device
+            index) on a ~100 Mbp synthetic genome (two references, a
+            2,000-contig target) against `python -m ntjoin_tpu.cli assemble
+            backend=native index_backend=host`: every artifact byte-equal,
+            every graph op counted on the GPU
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Imports no JAX.
@@ -33,9 +44,16 @@ import time
 import numpy as np
 import torch
 
+from ntjoin_tpu.core.assembly import AssemblySketch, SharedIndex
+from ntjoin_tpu.graph.mingraph import build_graph
+from ntjoin_tpu.graph.paths import find_paths as host_find_paths
 from ntjoin_tpu.io import native
 from ntjoin_tpu.ops.nthash_np import sketch_codes
+from ntjoin_tpu_torch import kernel_prof
+from ntjoin_tpu_torch.graph.paths import find_paths
+from ntjoin_tpu_torch.ops import device_index as di
 from ntjoin_tpu_torch.ops import sketch_cuda as sc
+from ntjoin_tpu_torch.ops.membw import copy_words, copy_words_ref
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 K, W = 32, 1000
@@ -44,6 +62,7 @@ SOURCES = {
     "window_emit": ("ntjoin_tpu_torch/csrc/window_emit.cu",
                     "ntjoin_tpu/ops/sketch_pallas.py:540"),
     "window": ("ntjoin_tpu_torch/csrc/window.cu", "ntjoin_tpu/ops/sketch_pallas.py:305"),
+    "copy": ("ntjoin_tpu_torch/csrc/copy.cu", "scripts/kernel_prof.py:190 and :380"),
 }
 
 
@@ -169,6 +188,25 @@ def kernels() -> dict[str, dict]:
     return out
 
 
+def copy() -> dict:
+    """Phase 4: the copy kernel against ``copy_`` on the profiler's array."""
+    x = torch.arange(kernel_prof.copy_rows(1 << 27) * 2048, dtype=torch.int32,
+                     device="cuda").view(-1, 2048)
+    x[::7] ^= -1  # words with the top bit set too
+    nbytes = x.numel() * 4
+    err = _compare("copy", (copy_words(x),), (copy_words_ref(x),))
+    odd = x.view(-1).view(torch.int8)[: 1_000_003]  # a byte count that is no multiple of 16
+    err = max(err, _compare("copy (byte tail)", (copy_words(odd),), (copy_words_ref(odd),)))
+    # plain, kernel, kernel, plain
+    plain_ms = _time_ms(lambda: copy_words_ref(x), 10)
+    ms = min(_time_ms(lambda: copy_words(x), 10), _time_ms(lambda: copy_words(x), 10))
+    plain_ms = min(plain_ms, _time_ms(lambda: copy_words_ref(x), 10))
+    say(f"== copy: {tuple(x.shape)} 32-bit words, {nbytes} bytes; bit-equal; kernel {ms:.3f} ms "
+        f"({2 * nbytes / ms / 1e6:.1f} GB/s), copy_ {plain_ms:.3f} ms "
+        f"({2 * nbytes / plain_ms / 1e6:.1f} GB/s)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
 def _records(rng, total: int) -> list[np.ndarray]:
     """Records of mixed length (some under w+k-1), a third with N runs, one
     with the repeat stretches."""
@@ -229,6 +267,142 @@ def sketch() -> None:
     if sc.COUNTS["exact_runs"] < 1 or sc.COUNTS["window"] < 1:
         fail(f"slot_cap=2 did not take the exact path: {sc.COUNTS}")
     say(f"   forced overflow (slot_cap=2): exact through kernel 3, counts {json.dumps(sc.COUNTS)}")
+
+
+def prof() -> dict[str, int]:
+    """Phase 6: the per-stage profiler in a process of its own; returns its
+    launch counts."""
+    t0 = time.monotonic()
+    res = subprocess.run([sys.executable, "-m", "ntjoin_tpu_torch.kernel_prof"], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+                         text=True, timeout=600)
+    if res.returncode != 0:
+        fail(f"kernel_prof exited {res.returncode}:\n{res.stderr[-4000:]}")
+    lines = {}
+    for ln in res.stdout.splitlines():
+        obj = json.loads(ln)
+        lines.update(obj)
+        say("   " + ln)
+    missing = [s for s in kernel_prof.STAGES if not isinstance(lines.get(s), dict)
+               or "skipped" in lines[s]]
+    if missing or "counts" not in lines:
+        fail(f"kernel_prof printed no result for {missing or ['counts']}")
+    say(f"== prof: stages {' '.join(kernel_prof.STAGES)} in {time.monotonic() - t0:.1f} s")
+    return lines["counts"]
+
+
+# -- phase 7: graph stages ---------------------------------------------------------
+
+
+def graph_assemblies(rng, n_mx: int = 2_000_000, n_chrom: int = 24,
+                     n_contigs: int = 500) -> list[AssemblySketch]:
+    """Sketches of one genome of ``n_mx`` minimizers ~500 bp apart (1 Gbp at
+    w=1000) in ``n_chrom`` chromosomes, as three assemblies of ~n_contigs
+    contigs each: every assembly substitutes 1% of the hashes and plants
+    0.2% within-assembly duplicates; reference 2 moves 40 blocks of 2,000
+    minimizers (branches); the target's contigs are shuffled and a third of
+    them reverse-ordered.  Weights 2, 2, 1."""
+    base = np.unique(rng.integers(0, 2**64 - 1, size=n_mx + n_mx // 50, dtype=np.uint64))
+    base = rng.permutation(base)[:n_mx]
+    gpos = np.cumsum(rng.integers(1, 1000, size=n_mx)).astype(np.int64)
+    chrom_cuts = np.sort(rng.choice(np.arange(1, n_mx), n_chrom - 1, replace=False))
+    out = []
+    for a, (name, weight) in enumerate((("ref1", 2.0), ("ref2", 2.0), ("target", 1.0))):
+        h = base.copy()
+        sub = rng.random(n_mx) < 0.01
+        h[sub] = rng.integers(0, 2**64 - 1, size=int(sub.sum()), dtype=np.uint64)
+        dup = rng.choice(n_mx, n_mx // 500, replace=False)
+        h[dup] = h[rng.choice(n_mx, dup.shape[0])]
+        order = np.arange(n_mx)
+        if name == "ref2":
+            for _ in range(40):
+                s, t = rng.integers(0, n_mx - 2000, size=2)
+                blk = order[s : s + 2000]
+                rest = np.concatenate([order[:s], order[s + 2000 :]])
+                order = np.concatenate([rest[:t], blk, rest[t:]])
+        cuts = np.union1d(chrom_cuts, rng.choice(np.arange(1, n_mx), n_contigs - n_chrom,
+                                                 replace=False))
+        contigs = np.split(order, cuts)
+        if name == "target":
+            contigs = [contigs[i] for i in rng.permutation(len(contigs))]
+        hs, ps, cs = [], [], []
+        for ci, idx in enumerate(contigs):
+            p = gpos[idx] - gpos[idx].min()
+            if name == "target" and rng.random() < 1 / 3:
+                p = p.max() - p
+            srt = np.argsort(p, kind="stable")
+            hs.append(h[idx][srt])
+            ps.append(p[srt])
+            cs.append(np.full(idx.shape[0], ci, np.int32))
+        out.append(AssemblySketch.from_stream(
+            name, weight, [f"{name}_{i}" for i in range(len(contigs))],
+            np.concatenate(hs), np.concatenate(ps), np.concatenate(cs)))
+    return out
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def graph(n_mx: int = 2_000_000, device: str = "cuda") -> None:
+    """Phase 7: the device graph stages against the host's at 1 Gbp scale."""
+    t0 = time.monotonic()
+    asms = graph_assemblies(np.random.default_rng(7), n_mx)
+    say(f"== graph: {' '.join(str(a.hash.shape[0]) for a in asms)} minimizers after "
+        f"within-assembly uniqueness; made in {time.monotonic() - t0:.1f} s")
+    n_min = 2
+    min_w = min(a.weight for a in asms)
+
+    def port():
+        di.reset_counts()
+        shared, t_index = _timed(lambda: di.shared_index_device(asms, device))
+        g, t_graph = _timed(lambda: di.build_graph_device(shared, device))
+        comp, t_cc = _timed(g.components)
+        g.global_weight_filter(n_min, min_w)
+        (paths, ncomp), t_paths = _timed(lambda: find_paths(g, shared, n_min, device))
+        return (shared, g, comp, paths, ncomp), (t_index, t_graph, t_cc, t_paths)
+
+    port()  # first use of each torch op on the card
+    (shared, g, comp, paths, ncomp), port_s = port()
+    counts = di.counts_report()
+    (host, t_index) = _timed(lambda: SharedIndex(asms))
+    hg, t_graph = _timed(lambda: build_graph(host))
+    hcomp, t_cc = _timed(hg.components)
+    hg.global_weight_filter(n_min, min_w)
+    branch = int((hg.degrees() > 2).sum())
+    (hpaths, hncomp), t_paths = _timed(lambda: host_find_paths(hg, host, n_min, device=False))
+
+    def same(what, a, b):
+        if not (np.asarray(a).dtype == np.asarray(b).dtype and np.array_equal(a, b)):
+            fail(f"graph: {what} differs between the device and the host")
+
+    same("node hashes", shared.node_hash, host.node_hash)
+    same("positions", shared.pos, host.pos)
+    same("contigs", shared.ctg, host.ctg)
+    for a, ((gi, gc), (hi, hc)) in enumerate(zip(shared.streams, host.streams)):
+        same(f"stream {a} ids", gi, hi)
+        same(f"stream {a} contigs", gc, hc)
+    for name in ("src", "dst", "weight", "support_mask"):
+        same(f"edge {name}", getattr(g, name), getattr(hg, name))
+    same("component labels", comp, hcomp.astype(comp.dtype))
+    same("alive mask", g.alive, hg.alive)
+    if ncomp != hncomp or [p for p, _ in paths] != [p for p, _ in hpaths]:
+        fail(f"graph: paths differ ({len(paths)} vs {len(hpaths)}, {ncomp} vs {hncomp} "
+             "components)")
+    for op in di.GRAPH_OPS:
+        if counts[op]["launches"] < 1 or counts[op]["device"] != torch.device(device).type:
+            fail(f"graph: op {op} did not run on the GPU: {counts}")
+    lens = sorted((len(p) for p, _ in paths), reverse=True)
+    say(f"   equal: {shared.num_nodes} nodes, {g.src.shape[0]} edges, {ncomp} components, "
+        f"{len(paths)} paths (longest {lens[:3]} nodes), {branch} branch nodes before "
+        f"path finding; counts {json.dumps(counts)}")
+    for stage, p, h in zip(("shared index", "graph build", "components", "find_paths"),
+                           port_s, (t_index, t_graph, t_cc, t_paths)):
+        say(f"   {stage}: device {p:.4f} s, host {h:.4f} s")
 
 
 # -- phase 5: end to end ---------------------------------------------------------
@@ -331,11 +505,19 @@ def _stages(out: str) -> list[str]:
     if "stage\twall_s\tpeak_rss_kb" not in lines:
         return []
     i = lines.index("stage\twall_s\tpeak_rss_kb")
-    return [ln for ln in lines[i + 1 :] if ln.count("\t") == 2 and not ln.startswith("sketch_counts")]
+    return [ln for ln in lines[i + 1 :] if ln.count("\t") == 2 and "_counts\t" not in ln]
+
+
+def _counts_line(out: str, key: str) -> dict:
+    line = next((ln for ln in out.splitlines() if ln.startswith(key + "\t")), None)
+    if line is None:
+        fail(f"the port printed no {key}")
+    return json.loads(line.split("\t", 1)[1])
 
 
 def e2e(sizes: list[int], n_contigs: int) -> dict[str, int]:
-    """Phase 5: the port's assemble against the JAX package's host path."""
+    """Phase 8: the port's assemble against the JAX package's host path;
+    returns the port's sketch counts."""
     rng = np.random.default_rng(5)
     with tempfile.TemporaryDirectory(prefix="ntjoin_smoke_") as tmp:
         port, ref = os.path.join(tmp, "port"), os.path.join(tmp, "ref")
@@ -379,11 +561,13 @@ def e2e(sizes: list[int], n_contigs: int) -> dict[str, int]:
         say(f"   JAX package (backend={host}, index_backend=host) wall {r_wall:.3f} s; stages:")
         for ln in _stages(r_out):
             say("     " + ln)
-        counts = next((json.loads(ln.split("\t", 1)[1]) for ln in p_out.splitlines()
-                       if ln.startswith("sketch_counts\t")), None)
-        if counts is None:
-            fail("the port printed no sketch counts")
+        counts = _counts_line(p_out, "sketch_counts")
+        index = _counts_line(p_out, "index_counts")
         say(f"   port counts: {json.dumps(counts)}")
+        say(f"   port index counts: {json.dumps(index)}")
+        for op in di.GRAPH_OPS:
+            if index[op]["launches"] < 1 or index[op]["device"] != "cuda":
+                fail(f"graph op {op} did not run on the GPU in the e2e run: {index}")
         return counts
 
 
@@ -391,11 +575,15 @@ def main() -> int:
     smi = card()
     build()
     times = kernels()
+    times["copy"] = copy()
     sketch()
+    prof_counts = prof()  # the copy kernel's main path
+    graph()
     counts = e2e([24_000_000, 22_000_000, 20_000_000, 18_000_000, 16_000_000], 2000)
+    counts["copy"] = prof_counts["copy"]
     for name in sc.KERNELS:
         if counts[name] < 1:
-            fail(f"kernel {name} was not launched on the main path")
+            fail(f"kernel {name} was not launched on its main path")
     if counts["host_records"] != 0:
         fail(f"{counts['host_records']} records took the host sketcher")
     if "jax" in sys.modules:

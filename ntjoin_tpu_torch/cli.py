@@ -11,8 +11,14 @@ The key=value surface is the JAX package's.  Sketch backends:
 * ``torch``: the kernels' plain PyTorch versions on ``device=`` (default cpu).
 * ``native`` / ``numpy``: the host sketchers.
 
-The scaffold stages run through the JAX package's host layers with the host
-index.  Options whose device code is not ported yet are refused.
+Index backends (``index_backend=``): ``device`` runs the shared index,
+graph build, connected components and path passes as torch ops
+(``core/scaffolder.py``) on the sketch's device (``cuda`` for
+``backend=cuda|auto``, ``device=`` otherwise); ``host`` runs the JAX
+package's host layers; ``auto`` (the default) is ``device`` for the cuda and
+torch backends and ``host`` for native and numpy, as ``ntjoin_tpu.cli``
+resolves it for its device backends.  Options whose device code is not
+ported yet are refused.
 """
 from __future__ import annotations
 
@@ -27,17 +33,18 @@ import torch
 from ntjoin_tpu.cli import _gzip_artifact, _parse_vars, _truthy
 from ntjoin_tpu.core.assembly import AssemblySketch
 from ntjoin_tpu.core.config import ScaffoldConfig
-from ntjoin_tpu.core.scaffolder import Scaffolder
 from ntjoin_tpu.emit.writers import write_minimizer_tsv
 from ntjoin_tpu.io.fasta import read_fasta, write_fai
 from ntjoin_tpu.utils.atomic import atomic_write
 from ntjoin_tpu.utils.timers import StageTimers
-from ntjoin_tpu_torch.ops import sketch_cuda
+from ntjoin_tpu_torch.core.scaffolder import Scaffolder
+from ntjoin_tpu_torch.ops import device_index, sketch_cuda
 
 USAGE = (
     "usage: python -m ntjoin_tpu_torch.cli assemble [-B] target=<fa> references='<fa> ...' "
     "reference_weights='<w> ...' [k=32] [w=1000] [n=1] [backend=cuda|torch|native|numpy] "
-    "[device=cpu] [agp=True] [time=True] ...  (keys as in ntjoin_tpu.cli)"
+    "[index_backend=auto|device|host] [device=cpu] [agp=True] [time=True] ...  "
+    "(keys as in ntjoin_tpu.cli)"
 )
 
 
@@ -49,14 +56,22 @@ def _refusal(v: dict[str, str]) -> str | None:
                 "(ROADMAP Queue A items 2-3)")
     if backend not in ("auto", "cuda", "torch", "native", "numpy"):
         return f"unknown backend={backend} (cuda, torch, native or numpy)"
-    if v["index_backend"] == "device":
-        return ("index_backend=device is not ported yet (ROADMAP Queue A item 5); "
-                "use index_backend=host")
     if _truthy(v["mkt"]):
         return "mkt=True is not ported yet (ROADMAP Queue A item 9)"
     if int(v["n_procs"]) > 1 or v["coordinator"] != "None":
         return "n_procs>1 is not ported yet (ROADMAP Queue A item 12)"
     return None
+
+
+def _index_backend(v: dict[str, str]) -> tuple[str, str]:
+    """(index backend, device of the graph stages) for the settings:
+    ``auto`` is ``device`` for the GPU and torch sketches, ``host``
+    otherwise."""
+    backend, index = v["backend"], v["index_backend"]
+    device = "cuda" if backend in ("auto", "cuda") else v.get("device", "cpu")
+    if index == "auto":
+        index = "host" if backend in ("native", "numpy") else "device"
+    return index, device
 
 
 def _sketcher(backend: str, device: str):
@@ -134,6 +149,7 @@ def assemble(words: list[str]) -> int:
         print("ERROR: backend=cuda needs a CUDA device and none is available "
               "(backend=torch runs the plain versions)", file=sys.stderr)
         return 1
+    index_backend, index_device = _index_backend(v)
 
     k, w, n = int(v["k"]), int(v["w"]), int(v["n"])
     prefix = v["prefix"] or f"out.k{k}.w{w}.n{n}"
@@ -168,10 +184,11 @@ def assemble(words: list[str]) -> int:
         overlap_gap=int(overlap_g),
         overlap_k=int(v["overlap_k"]),
         overlap_w=int(v["overlap_w"]),
-        index_backend="host",
+        index_backend=index_backend,
     )
+    device_index.reset_counts()
     with timers.stage("scaffold"):
-        Scaffolder(cfg, sketch_cache=cache).run()
+        Scaffolder(cfg, sketch_cache=cache, device=index_device).run()
 
     base = f"{v['target']}.k{k}.w{w}.n{n}"
     parts = [f"{base}.assigned.scaffolds.fa", f"{base}.unassigned.scaffolds.fa"]
@@ -187,6 +204,7 @@ def assemble(words: list[str]) -> int:
     timers.report()
     if timers.enabled:
         print("sketch_counts\t" + json.dumps(sketch_cuda.COUNTS))
+        print("index_counts\t" + json.dumps(device_index.counts_report()))
     return 0
 
 

@@ -49,9 +49,17 @@ LIB_PATH = os.path.join(_PKG, "_build", "libntjoin_cuda.so")
 
 # Kernel launches by op, calls of each op's plain version, records the host
 # sketcher took, and runs of the exact window path.  Plain counters so that
-# a run can show which code served it; ``reset_counts`` zeroes them.
-KERNELS = ("hash", "window_emit", "window")
+# a run can show which code served it; ``reset_counts`` zeroes them.  The
+# sketch runs the first three kernels; the copy (``ops/membw.py``) serves
+# the profiler.
+KERNELS = ("hash", "window_emit", "window", "copy")
 COUNTS: dict[str, int] = {}
+# Host-clock seconds of ``sketch_records_torch`` by stage, accumulated over
+# calls (the counterpart of ``sketch_pallas._STAGES``): plan (N
+# segmentation and batching), pack (pinned buffer), device (upload through
+# the sync on the result), split (per-record split) and patches (junction
+# patches and their merge).  Callers clear it.
+STAGES: dict[str, float] = {}
 
 
 def reset_counts() -> None:
@@ -156,6 +164,7 @@ def _lib():
             "nj_hash": [p, i64, i64, i64, i32, p, p, p, p],
             "nj_window_emit": [p, p, i64, i64, i32, i64, i64, p, p, p, p, p, p],
             "nj_window": [p, i64, i64, i32, i64, p, i64, p, p, p, p],
+            "nj_copy": [p, p, i64, p],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -163,6 +172,13 @@ def _lib():
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def _stage(name: str, t0: float) -> float:
+    """Add the seconds since t0 to ``STAGES[name]``; returns the clock."""
+    t = time.monotonic()
+    STAGES[name] = STAGES.get(name, 0.0) + (t - t0)
+    return t
 
 
 def _launched(err: int, name: str) -> None:
@@ -442,8 +458,8 @@ def _compact_exact(am: torch.Tensor, flags: torch.Tensor, h: torch.Tensor,
 
 
 def sketch_fused_torch(flat: torch.Tensor, n: int, k: int, w: int,
-                       slot_cap: int | None = None,
-                       plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+                       slot_cap: int | None = None, plain: bool = False,
+                       stop_after: str | None = None) -> tuple[torch.Tensor, ...]:
     """Sketch the stream ``flat`` (int8 codes on the device, its first n
     bases the data, invalid bases after, length >= C*L + w + k - 2 for
     ``layout(n, k, w)``).
@@ -454,6 +470,11 @@ def sketch_fused_torch(flat: torch.Tensor, n: int, k: int, w: int,
     ``COUNTS["exact_runs"]`` once per call.  ``slot_cap`` overrides the
     per-chunk emission capacity; ``plain`` runs the plain versions of the ops
     even on a CUDA device.
+
+    ``stop_after`` cuts the pipeline short for the profiler, as
+    ``sketch_pallas._sketch_fused``'s hook does: ``"hash"`` returns op 1's
+    (hashes, valid flags), ``"window"`` op 2's (positions, hashes, counts)
+    before compaction.
     """
     C, L = layout(n, k, w)
     off = k - 1
@@ -462,10 +483,16 @@ def sketch_fused_torch(flat: torch.Tensor, n: int, k: int, w: int,
         h, val = hash_chunked_ref(_chunk_view(flat, L, C, rows), k)
     else:
         h, val = hash_chunked(flat, L, C, rows, k)
+    if stop_after == "hash":
+        return h, val
     flags = window_flags(val, L, w, off)
     del val
     cap = _slot_cap(L, w) if slot_cap is None else slot_cap
     spos, shsh, count = (window_emit_ref if plain else window_emit)(h, flags, L, w, off, cap)
+    if stop_after == "window":
+        return spos, shsh, count
+    if stop_after is not None:
+        raise ValueError(f"stop_after={stop_after!r}: want None, 'hash' or 'window'")
     over = count > cap
     count = count.masked_fill(over, 0)
     n_over, total = torch.stack([over.sum(), count.sum()]).tolist()
@@ -598,6 +625,7 @@ def _sketch_batch(batch: list[np.ndarray], k: int, w: int, device: torch.device,
                   slot_cap: int | None, plain: bool) -> list[Sketch]:
     """Join the records with k-1 invalid bases, sketch the stream on the
     device and split the emissions per record."""
+    t0 = time.monotonic()
     lens = np.array([c.shape[0] for c in batch], dtype=np.int64)
     offsets = np.concatenate([[0], np.cumsum(lens + k - 1)[:-1]]).astype(np.int64)
     total = int(offsets[-1] + lens[-1] + k - 1)
@@ -609,16 +637,20 @@ def _sketch_batch(batch: list[np.ndarray], k: int, w: int, device: torch.device,
     hv = host.numpy()
     for o, c in zip(offsets, batch):
         hv[o : o + c.shape[0]] = c
+    t0 = _stage("pack", t0)
     flat = host.to(device, non_blocking=True)
     pos, canon = sketch_fused_torch(flat, total, k, w, slot_cap, plain)
     pos_np = pos.cpu().numpy()
     hashes = u64.as_u64(u64.derive_hash(canon, k))
+    t0 = _stage("device", t0)
     # emissions ascend and records are disjoint ascending ranges
     bounds = np.append(np.searchsorted(pos_np, offsets), pos_np.shape[0])
-    return [
+    out = [
         Sketch(positions=pos_np[a:b] - o, hashes=hashes[a:b]) if b > a else _EMPTY
         for o, a, b in zip(offsets, bounds[:-1], bounds[1:])
     ]
+    _stage("split", t0)
+    return out
 
 
 def sketch_records_torch(codes_list: list[np.ndarray], k: int, w: int,
@@ -635,6 +667,7 @@ def sketch_records_torch(codes_list: list[np.ndarray], k: int, w: int,
     about ``BATCH_BASES`` bases.  ``slot_cap`` and ``plain`` pass to
     ``sketch_fused_torch``.
     """
+    t0 = time.monotonic()
     device = torch.device(device)
     out: list[Sketch] = [_EMPTY] * len(codes_list)
     entries: list[tuple[int, int, np.ndarray]] = []  # (record, base, codes)
@@ -663,15 +696,18 @@ def sketch_records_torch(codes_list: list[np.ndarray], k: int, w: int,
             acc = 0
         batches[-1].append(ent)
         acc += sz
+    _stage("plan", t0)
     pieces: dict[int, list[tuple[int, Sketch]]] = {}
     for b in batches:
         sketches = _sketch_batch([e[2] for e in b], k, w, device, slot_cap, plain)
         for (i, base, _), sk in zip(b, sketches):
             pieces.setdefault(i, []).append((base, sk))
 
+    t0 = time.monotonic()
     for i, got in pieces.items():
         if i not in patch_plans:
             out[i] = got[0][1]
+    t0 = _stage("split", t0)
     for i, (c, segs, nks, offs, patch_ivs) in patch_plans.items():
         ppos, pcanon = _patch_emissions(c, k, w, segs, nks, offs, patch_ivs)
         parts = pieces.get(i, [])
@@ -684,6 +720,7 @@ def sketch_records_torch(codes_list: list[np.ndarray], k: int, w: int,
         keep = np.ones(pos.shape[0], dtype=bool)
         keep[1:] = pos[1:] != pos[:-1]  # device/patch overlap
         out[i] = Sketch(positions=pos[keep], hashes=hsh[keep])
+    _stage("patches", t0)
     return out
 
 

@@ -1,6 +1,7 @@
 """The port's command line against the JAX package's: byte-equal artifacts
 on synthetic fixtures, its refusals, and the chip smoke script without a
 card."""
+import json
 import os
 import subprocess
 import sys
@@ -52,20 +53,29 @@ _PORT = (
 )
 
 
+@pytest.mark.parametrize("index_backend", ["auto", "host"])
 @pytest.mark.parametrize("fixture,prefix,extra", [
     (_many_contigs, "many", []),
     (_more_sequences, "longer", ["agp=True"]),
 ])
-def test_port_cli_matches_jax_cli(tmp_path, fixture, prefix, extra):
+def test_port_cli_matches_jax_cli(tmp_path, fixture, prefix, extra, index_backend):
+    """``index_backend=auto`` with ``backend=torch`` runs the port's device
+    index on the CPU; ``host`` the JAX package's host layers."""
     port, ref = tmp_path / "port", tmp_path / "ref"
     for d in (port, ref):
         d.mkdir()
         fixture(d)
     env = dict(os.environ, PYTHONPATH=REPO)
     args = ["assemble", "-B", *_COMMON, f"prefix={prefix}", *extra]
-    res = subprocess.run([sys.executable, "-c", _PORT, *args, "backend=torch"],
+    res = subprocess.run([sys.executable, "-c", _PORT, *args, "backend=torch", "time=True",
+                          f"index_backend={index_backend}"],
                          cwd=port, env=env, capture_output=True, text=True)
     assert res.returncode == 0, res.stderr + res.stdout
+    counts = json.loads(next(ln for ln in res.stdout.splitlines()
+                             if ln.startswith("index_counts\t")).split("\t", 1)[1])
+    for op in ("shared_filter", "edge_tally", "cc", "escalate", "rank"):
+        want = (None, 0) if index_backend == "host" else ("cpu", 1 + (op == "cc"))
+        assert (counts[op]["device"], counts[op]["launches"]) == want, op
     res = subprocess.run([sys.executable, "-m", "ntjoin_tpu.cli", *args, "backend=numpy",
                           "index_backend=host"], cwd=ref, env=env, capture_output=True, text=True)
     assert res.returncode == 0, res.stderr + res.stdout
@@ -84,7 +94,6 @@ def test_port_cli_matches_jax_cli(tmp_path, fixture, prefix, extra):
 
 
 @pytest.mark.parametrize("word,item", [
-    ("index_backend=device", "ROADMAP Queue A item 5"),
     ("mkt=True", "ROADMAP Queue A item 9"),
     ("backend=pallas", "ROADMAP Queue A items 2-3"),
     ("backend=jax", "ROADMAP Queue A items 2-3"),

@@ -14,7 +14,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.mark.parametrize(
     "module",
     ["ntjoin_tpu_torch", "ntjoin_tpu_torch.cli", "ntjoin_tpu_torch.ops.sketch_cuda",
-     "chip_smoke"],
+     "ntjoin_tpu_torch.ops.membw", "ntjoin_tpu_torch.ops.device_index",
+     "ntjoin_tpu_torch.ops.cc", "ntjoin_tpu_torch.ops.device_paths",
+     "ntjoin_tpu_torch.graph.mingraph", "ntjoin_tpu_torch.graph.paths",
+     "ntjoin_tpu_torch.core.scaffolder", "ntjoin_tpu_torch.kernel_prof", "chip_smoke"],
 )
 def test_imports_no_jax(module):
     code = (
