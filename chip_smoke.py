@@ -1,20 +1,29 @@
 """Smoke run of the PyTorch port (ntjoin_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the repository root
+    python3 chip_smoke.py                  # from the repository root
 
 Phases, each printing its own lines; a failure in any of them ends the run
 with a non-zero exit and no result line:
 
 1. card     the CUDA device, and its name and power limit from nvidia-smi
-2. build    nvcc builds the kernels from ntjoin_tpu_torch/csrc
+2. build    nvcc builds the kernels from ntjoin_tpu_torch/csrc (one compiler
+            per source, side by side) and g++ the host library from
+            native/ntjoin_native.cpp, both into ntjoin_tpu_torch/_build
 3. kernels  each sketch kernel against its plain PyTorch version on the
             card, on 2^27 seeded bases (k=32, w=1000) with N runs, a poly-C
             and an AC microsatellite stretch; outputs bit-equal; CUDA-event
-            times
-4. copy     the copy kernel against its plain version (``copy_``) on the
-            profiler's 546 MB array of 32-bit words; bit-equal; GB/s
+            times; the window/emission kernel's shared-memory route beside
+            the device-memory route it replaced on the same inputs, that
+            route again at w=5000 (where it serves), and the
+            shared-memory route at w=10 and w=100 (short windows, empty
+            row groups) and its narrower tiles at w=2000 and w=4000
+4. copy     the copy kernel against the plain version and against
+            ``copy_`` into a kept buffer on the profiler's 546 MB array of
+            32-bit words; bit-equal; plain, kernel and ``copy_`` timed in
+            turns, five rounds; GB/s
 5. sketch   sketch_records_torch on a multi-record batch with N runs against
-            the host oracle, and one forced overflow through kernel 3
+            the host oracle, one forced overflow through kernel 3, and a
+            batch at w=5000 through the device-memory route
 6. prof     `python -m ntjoin_tpu_torch.kernel_prof` at 2^27 bases, every
             stage: each must print its JSON line, forwarded here; its
             launch counts are the copy kernel's main path
@@ -24,18 +33,22 @@ with a non-zero exit and no result line:
             build_graph, components and find_paths: every array equal
 8. e2e      `python -m ntjoin_tpu_torch.cli assemble backend=cuda` (device
             index) on a ~100 Mbp synthetic genome (two references, a
-            2,000-contig target) against `python -m ntjoin_tpu.cli assemble
-            backend=native index_backend=host`: every artifact byte-equal,
-            every graph op counted on the GPU
+            2,000-contig target) against the same command with
+            `backend=native index_backend=host` (the port's C++ sketcher and
+            NumPy graph layers, which share no kernel and no torch op with
+            the path under test): every artifact byte-equal, every graph op
+            counted on the GPU
 
-The last three lines are the kernels' JSON record, the card's name and power
-limit, and {"ok": true, "device": {...}}.  Imports no JAX.
+The last three lines are the kernels' JSON record, the card's
+name and power limit, and {"ok": true, "device": {...}}.  Imports neither
+JAX nor the JAX package.
 """
 from __future__ import annotations
 
 import filecmp
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -44,23 +57,30 @@ import time
 import numpy as np
 import torch
 
-from ntjoin_tpu.core.assembly import AssemblySketch, SharedIndex
-from ntjoin_tpu.graph.mingraph import build_graph
-from ntjoin_tpu.graph.paths import find_paths as host_find_paths
-from ntjoin_tpu.io import native
-from ntjoin_tpu.ops.nthash_np import sketch_codes
 from ntjoin_tpu_torch import kernel_prof
+from ntjoin_tpu_torch.core.assembly import AssemblySketch, SharedIndex
+from ntjoin_tpu_torch.graph.mingraph import build_graph
 from ntjoin_tpu_torch.graph.paths import find_paths
+from ntjoin_tpu_torch.io import native
 from ntjoin_tpu_torch.ops import device_index as di
+from ntjoin_tpu_torch.ops import membw
 from ntjoin_tpu_torch.ops import sketch_cuda as sc
-from ntjoin_tpu_torch.ops.membw import copy_words, copy_words_ref
+from ntjoin_tpu_torch.ops.nthash_np import sketch_codes
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 K, W = 32, 1000
+W_GMEM = 5000  # a window the shared-memory route cannot hold: the device-memory route's
+# The card's published peaks, for the bounds: device memory, and float32
+# outside the tensor cores standing in for the integer rate (the data sheet
+# gives none).
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
 SOURCES = {
     "hash": ("ntjoin_tpu_torch/csrc/hash.cu", "ntjoin_tpu/ops/sketch_pallas.py:107"),
     "window_emit": ("ntjoin_tpu_torch/csrc/window_emit.cu",
                     "ntjoin_tpu/ops/sketch_pallas.py:540"),
+    "window_emit_gmem": ("ntjoin_tpu_torch/csrc/window_emit.cu",
+                         "ntjoin_tpu/ops/sketch_pallas.py:540"),
     "window": ("ntjoin_tpu_torch/csrc/window.cu", "ntjoin_tpu/ops/sketch_pallas.py:305"),
     "copy": ("ntjoin_tpu_torch/csrc/copy.cu", "scripts/kernel_prof.py:190 and :380"),
 }
@@ -94,6 +114,22 @@ def build() -> None:
     for ln in log.splitlines():
         if "Compiling entry" in ln or "Used" in ln:
             say("   " + ln.strip())
+    t0 = time.monotonic()
+    if native.available():
+        say(f"   host library: {time.monotonic() - t0:.2f} s -> "
+            f"{os.path.relpath(native.LIB_PATH, REPO)}")
+    elif shutil.which("g++"):
+        fail("g++ is here but the host library is unavailable")
+    else:
+        say("   host library: no g++ on this machine; the NumPy sketcher is the oracle")
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over its memory rate or
+    operations over its peak rate, whichever is longer."""
+    by, op = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+    return {"bound_ms": max(by, op), "bound_by": "bytes" if by >= op else "operations",
+            "bound_bytes": int(nbytes)}
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -135,17 +171,36 @@ def _repeat_codes(rng, codes: np.ndarray, n_ns: int, span: tuple[int, int]) -> N
     codes[s + 1 : s + 5001 : 2] = 1
 
 
+def _cell(codes: np.ndarray, w: int):
+    """The chunked stream of ``codes`` at window w on the card:
+    (flat, C, L, rows, off)."""
+    n = codes.shape[0]
+    C, L = sc.layout(n, K, w)
+    flat_np = np.full(C * L + w + K - 2, 4, dtype=np.int8)
+    flat_np[:n] = codes
+    return torch.from_numpy(flat_np).cuda(), C, L, L + w + K - 2, K - 1
+
+
+def _emit_bound(L: int, C: int, w: int, cap: int) -> dict:
+    """Window/emission: the hashes its windows cover and the flags in, the
+    lists and counts out; three 64-bit compares per element (suffix, prefix,
+    combine) and one per window (emission)."""
+    return bound(8 * (L + w - 1) * C + L * C + 16 * cap * C + 8 * C,
+                 3 * (L + w - 1) * C + L * C)
+
+
+def _seeded_codes(n: int, n_ns: int) -> np.ndarray:
+    rng = np.random.default_rng(2027)
+    codes = rng.integers(0, 4, size=n, dtype=np.int8)
+    _repeat_codes(rng, codes, n_ns, (10, 5000))
+    return codes
+
+
 def kernels() -> dict[str, dict]:
     """Phase 3: each kernel against its plain version at the bench shape."""
     n = 1 << 27
-    rng = np.random.default_rng(2027)
-    codes = rng.integers(0, 4, size=n, dtype=np.int8)
-    _repeat_codes(rng, codes, 64, (10, 5000))
-    C, L = sc.layout(n, K, W)
-    rows, off = L + W + K - 2, K - 1
-    flat_np = np.full(C * L + W + K - 2, 4, dtype=np.int8)
-    flat_np[:n] = codes
-    flat = torch.from_numpy(flat_np).cuda()
+    codes = _seeded_codes(n, 64)
+    flat, C, L, rows, off = _cell(codes, W)
     view = sc._chunk_view(flat, L, C, rows)
     say(f"== kernels: {n} bases, k={K} w={W}, C={C} chunks of L={L}")
     out = {}
@@ -156,19 +211,37 @@ def kernels() -> dict[str, dict]:
     del h_ref, val_ref
     ms = _time_ms(lambda: sc.hash_chunked(flat, L, C, rows, K), 5)
     plain_ms = _time_ms(lambda: sc.hash_chunked_ref(view, K), 2)
-    out["hash"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    # 1 B of code in and 9 B out per row; two rotations, four xors, an add
+    # and the valid test: ~12 integer operations
+    out["hash"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                   **bound(flat.numel() + 9 * rows * C, 12 * rows * C)}
+    say(f"   hash rows pitched to {h.stride(0)} columns")
 
     flags = sc.window_flags(val, L, W, off)
     cap = sc._slot_cap(L, W)
+    tile = sc.emit_tile(W)
+    if not tile:
+        fail(f"w={W} does not fit the shared-memory route")
+    want = sc.window_emit_ref(h, flags, L, W, off, cap)
     got = sc.window_emit(h, flags, L, W, off, cap)
-    err = _compare("window_emit", got, sc.window_emit_ref(h, flags, L, W, off, cap))
+    err = _compare("window_emit", got, want)
+    _compare("window_emit (device-memory route)",
+             sc._window_emit_gmem(h, flags, L, W, off, cap), want)
     over = torch.nonzero(got[2] > cap).flatten()
-    ms = _time_ms(lambda: sc.window_emit(h, flags, L, W, off, cap), 5)
+    n_max = int(got[2].max())
+    del got, want
+    # the route it replaced, the new one, the new one, the route it replaced
+    old_ms = _time_ms(lambda: sc._window_emit_gmem(h, flags, L, W, off, cap), 5)
+    ms = min(_time_ms(lambda: sc.window_emit(h, flags, L, W, off, cap), 5),
+             _time_ms(lambda: sc.window_emit(h, flags, L, W, off, cap), 5))
+    old_ms = min(old_ms, _time_ms(lambda: sc._window_emit_gmem(h, flags, L, W, off, cap), 5))
     plain_ms = _time_ms(lambda: sc.window_emit_ref(h, flags, L, W, off, cap), 2)
-    out["window_emit"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    out["window_emit"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "library_ms": None, **_emit_bound(L, C, W, cap)}
+    say(f"   window_emit: shared-memory route (tiles of {tile} chunks) {ms:.3f} ms, the "
+        f"device-memory route it replaced {old_ms:.3f} ms, same inputs, both bit-equal")
     say(f"   emission capacity {cap}/chunk; {over.numel()} chunks overflowed "
-        f"(max count {int(got[2].max())})")
-    del got
+        f"(max count {n_max})")
     if over.numel() == 0:
         fail("the repeat stretches overflowed no chunk: kernel 3 unexercised")
 
@@ -181,30 +254,84 @@ def kernels() -> dict[str, dict]:
                             (sc.window_argmin_ref(h, L, W, off, over),)))
     ms = _time_ms(lambda: sc.window_argmin(h, L, W, off, over), 5)
     plain_ms = _time_ms(lambda: sc.window_argmin_ref(h, L, W, off, over), 5)
-    out["window"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-    say(f"   window over all {C} chunks: kernel {all_ms:.3f} ms, plain {all_plain_ms:.3f} ms")
+    n_over = over.numel()
+    out["window"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                     **bound(8 * (L + W - 1) * n_over + 8 * n_over + 8 * L * n_over,
+                             3 * (L + W - 1) * n_over)}
+    all_bound = bound(8 * (L + W - 1) * C + 8 * C + 8 * L * C, 3 * (L + W - 1) * C)
+    say(f"   window over all {C} chunks: kernel {all_ms:.3f} ms, plain {all_plain_ms:.3f} ms, "
+        f"bound {all_bound['bound_ms']:.3f} ms ({all_bound['bound_bytes']} bytes)")
+    del h, val, flags, flat, view
+
+    # the device-memory route where it serves: a window too long for shared memory
+    flat, C, L, rows, off = _cell(codes, W_GMEM)
+    if sc.emit_tile(W_GMEM):
+        fail(f"w={W_GMEM} fits the shared-memory route: the device-memory route unexercised")
+    h, val = sc.hash_chunked(flat, L, C, rows, K)
+    flags = sc.window_flags(val, L, W_GMEM, off)
+    cap = sc._slot_cap(L, W_GMEM)
+    sc.reset_counts()
+    err = _compare(f"window_emit_gmem (w={W_GMEM})",
+                   sc.window_emit(h, flags, L, W_GMEM, off, cap),
+                   sc.window_emit_ref(h, flags, L, W_GMEM, off, cap))
+    if sc.COUNTS["window_emit_gmem"] != 1 or sc.COUNTS["window_emit"] != 0:
+        fail(f"w={W_GMEM} did not take the device-memory route: {sc.COUNTS}")
+    ms = _time_ms(lambda: sc.window_emit(h, flags, L, W_GMEM, off, cap), 5)
+    plain_ms = _time_ms(lambda: sc.window_emit_ref(h, flags, L, W_GMEM, off, cap), 2)
+    out["window_emit_gmem"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                               "library_ms": None, **_emit_bound(L, C, W_GMEM, cap)}
+    say(f"   window_emit_gmem at w={W_GMEM}: C={C} chunks of L={L}")
+    del h, val, flags, flat
+
+    # the shared-memory route off w=1000: overlap-size windows and windows
+    # under 191, where some of a block's row groups are empty, then its
+    # narrower tiles
+    small = _seeded_codes(1 << 24, 8)
+    for w in (10, 100, 2000, 4000):
+        flat, C, L, rows, off = _cell(small, w)
+        h, val = sc.hash_chunked(flat, L, C, rows, K)
+        flags = sc.window_flags(val, L, w, off)
+        cap = sc._slot_cap(L, w)
+        sc.reset_counts()
+        _compare(f"window_emit (w={w})", sc.window_emit(h, flags, L, w, off, cap),
+                 sc.window_emit_ref(h, flags, L, w, off, cap))
+        if sc.COUNTS["window_emit"] != 1:
+            fail(f"w={w} did not take the shared-memory route: {sc.COUNTS}")
+        say(f"   window_emit at w={w}, {small.shape[0]} bases: tiles of {sc.emit_tile(w)} "
+            f"chunks, bit-equal")
     for name, r in out.items():
-        say(f"   {name}: bit-equal; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
+        say(f"   {name}: bit-equal; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_bytes']} bytes)")
     return out
 
 
 def copy() -> dict:
-    """Phase 4: the copy kernel against ``copy_`` on the profiler's array."""
+    """Phase 4: the copy kernel against ``copy_`` on the profiler's array,
+    timed in turns."""
     x = torch.arange(kernel_prof.copy_rows(1 << 27) * 2048, dtype=torch.int32,
                      device="cuda").view(-1, 2048)
     x[::7] ^= -1  # words with the top bit set too
     nbytes = x.numel() * 4
-    err = _compare("copy", (copy_words(x),), (copy_words_ref(x),))
     odd = x.view(-1).view(torch.int8)[: 1_000_003]  # a byte count that is no multiple of 16
-    err = max(err, _compare("copy (byte tail)", (copy_words(odd),), (copy_words_ref(odd),)))
-    # plain, kernel, kernel, plain
-    plain_ms = _time_ms(lambda: copy_words_ref(x), 10)
-    ms = min(_time_ms(lambda: copy_words(x), 10), _time_ms(lambda: copy_words(x), 10))
-    plain_ms = min(plain_ms, _time_ms(lambda: copy_words_ref(x), 10))
-    say(f"== copy: {tuple(x.shape)} 32-bit words, {nbytes} bytes; bit-equal; kernel {ms:.3f} ms "
-        f"({2 * nbytes / ms / 1e6:.1f} GB/s), copy_ {plain_ms:.3f} ms "
-        f"({2 * nbytes / plain_ms / 1e6:.1f} GB/s)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    err = _compare("copy", (membw.copy_words(x),), (membw.copy_words_ref(x),))
+    err = max(err, _compare("copy (byte tail)", (membw.copy_words(odd),),
+                            (membw.copy_words_ref(odd),)))
+    y = torch.empty_like(x)
+    turns = {"plain": lambda: membw.copy_words_ref(x), "kernel": lambda: membw.copy_words(x),
+             "copy_": lambda: y.copy_(x)}
+    times: dict[str, list[float]] = {name: [] for name in turns}
+    for _ in range(5):  # plain, kernel, copy_, plain, kernel, copy_, ...
+        for name, fn in turns.items():
+            times[name].append(_time_ms(fn, 10))
+    best = {name: min(v) for name, v in times.items()}
+    say(f"== copy: {tuple(x.shape)} 32-bit words, {nbytes} bytes; bit-equal")
+    for name, v in times.items():
+        say(f"   {name}: best {best[name]:.4f} ms ({2 * nbytes / best[name] / 1e6:.1f} GB/s); "
+            f"rounds {' '.join(f'{t:.4f}' for t in v)}")
+    out = {"max_abs_err": err, "ms": best["kernel"], "plain_ms": best["plain"],
+           "library_ms": best["copy_"], **bound(2 * nbytes, 0)}
+    say(f"   bound {out['bound_ms']:.4f} ms by {out['bound_by']} ({out['bound_bytes']} bytes)")
+    return out
 
 
 def _records(rng, total: int) -> list[np.ndarray]:
@@ -227,19 +354,20 @@ def _records(rng, total: int) -> list[np.ndarray]:
     return recs
 
 
-def _oracle(c: np.ndarray):
-    return native.sketch_codes_native(c, K, W) if native.available() else sketch_codes(c, K, W)
+def _oracle(c: np.ndarray, w: int):
+    return native.sketch_codes_native(c, K, w) if native.available() else sketch_codes(c, K, w)
 
 
-def _same(got, recs, what: str) -> None:
+def _same(got, recs, what: str, w: int = W) -> None:
     for i, (g, c) in enumerate(zip(got, recs)):
-        r = _oracle(c)
+        r = _oracle(c, w)
         if g.positions.tolist() != r.positions.tolist() or g.hashes.tolist() != r.hashes.tolist():
             fail(f"{what}: record {i} ({c.shape[0]} bases) differs from the oracle")
 
 
-def sketch() -> None:
-    """Phase 4: the batched sketch against the host oracle."""
+def sketch() -> int:
+    """Phase 5: the batched sketch against the host oracle; returns the
+    launches of the device-memory window/emission route on its path."""
     rng = np.random.default_rng(44)
     recs = _records(rng, 48 << 20)
     if not native.available():  # the numpy oracle is slow: a 2^22-base subset
@@ -267,6 +395,20 @@ def sketch() -> None:
     if sc.COUNTS["exact_runs"] < 1 or sc.COUNTS["window"] < 1:
         fail(f"slot_cap=2 did not take the exact path: {sc.COUNTS}")
     say(f"   forced overflow (slot_cap=2): exact through kernel 3, counts {json.dumps(sc.COUNTS)}")
+    long_w, acc = [], 0
+    for c in recs:
+        if acc < 1 << 24:
+            long_w.append(c)
+            acc += c.shape[0]
+    sc.reset_counts()
+    got = sc.sketch_records_torch(long_w, K, W_GMEM, "cuda")
+    counts = dict(sc.COUNTS)
+    _same(got, long_w, f"w={W_GMEM}", W_GMEM)
+    if counts["window_emit_gmem"] < 1 or counts["window_emit"] or counts["host_records"]:
+        fail(f"w={W_GMEM} did not go through the device-memory route: {counts}")
+    say(f"   w={W_GMEM}: {len(long_w)} records, {acc} bases, equal to the {oracle}; "
+        f"counts {json.dumps(counts)}")
+    return counts["window_emit_gmem"]
 
 
 def prof() -> dict[str, int]:
@@ -374,7 +516,7 @@ def graph(n_mx: int = 2_000_000, device: str = "cuda") -> None:
     hcomp, t_cc = _timed(hg.components)
     hg.global_weight_filter(n_min, min_w)
     branch = int((hg.degrees() > 2).sum())
-    (hpaths, hncomp), t_paths = _timed(lambda: host_find_paths(hg, host, n_min, device=False))
+    (hpaths, hncomp), t_paths = _timed(lambda: find_paths(hg, host, n_min, None))
 
     def same(what, a, b):
         if not (np.asarray(a).dtype == np.asarray(b).dtype and np.array_equal(a, b)):
@@ -405,7 +547,7 @@ def graph(n_mx: int = 2_000_000, device: str = "cuda") -> None:
         say(f"   {stage}: device {p:.4f} s, host {h:.4f} s")
 
 
-# -- phase 5: end to end ---------------------------------------------------------
+# -- phase 8: end to end ---------------------------------------------------------
 
 _ASCII = np.frombuffer(b"ACGTN", dtype=np.uint8)
 
@@ -516,8 +658,8 @@ def _counts_line(out: str, key: str) -> dict:
 
 
 def e2e(sizes: list[int], n_contigs: int) -> dict[str, int]:
-    """Phase 8: the port's assemble against the JAX package's host path;
-    returns the port's sketch counts."""
+    """Phase 8: the port's assemble on the card against its host path (C++
+    sketcher, NumPy graph layers); returns the card run's sketch counts."""
     rng = np.random.default_rng(5)
     with tempfile.TemporaryDirectory(prefix="ntjoin_smoke_") as tmp:
         port, ref = os.path.join(tmp, "port"), os.path.join(tmp, "ref")
@@ -534,41 +676,48 @@ def e2e(sizes: list[int], n_contigs: int) -> dict[str, int]:
         host = "native" if native.available() else "numpy"
         p_wall, p_out = _run([sys.executable, "-m", "ntjoin_tpu_torch.cli", "assemble", "-B",
                               "backend=cuda", *args], port)
-        r_wall, r_out = _run([sys.executable, "-m", "ntjoin_tpu.cli", "assemble", "-B",
+        r_wall, r_out = _run([sys.executable, "-m", "ntjoin_tpu_torch.cli", "assemble", "-B",
                               f"backend={host}", "index_backend=host", *args], ref)
         want = [f"{fa}{ext}" for fa in ("ref1.fa", "ref2.fa", "target.fa")
                 for ext in (".fai", f".k{K}.w{W}.tsv")]
         want += ["e2e.path", "e2e.mx.dot", "e2e.agp", f"e2e.target.fa.k{K}.w{W}.tsv.unassigned.bed"]
         want += [f"target.fa.k{K}.w{W}.n2.{p}.scaffolds.fa" for p in ("assigned", "unassigned", "all")]
-        # every artifact the JAX run made (inputs and stage timings aside)
+        # every artifact the host run made (inputs and stage timings aside)
         made = {f for f in os.listdir(ref) if not f.endswith((".time", ".fa")) or "scaffolds" in f}
         made |= set(want)
         for f in sorted(made):
             a, b = os.path.join(port, f), os.path.join(ref, f)
             if not (os.path.exists(a) and os.path.exists(b)):
-                fail(f"artifact {f} missing (port {os.path.exists(a)}, JAX host {os.path.exists(b)})")
+                fail(f"artifact {f} missing (card {os.path.exists(a)}, host {os.path.exists(b)})")
             if not filecmp.cmp(a, b, shallow=False):
-                fail(f"artifact {f} differs between the port and the JAX host path")
+                fail(f"artifact {f} differs between the card run and the host path")
         with open(os.path.join(port, "e2e.path"), encoding="utf-8") as fh:
             joins = sum(1 for ln in fh if ln.startswith("ntJoin"))
         if joins == 0:
             fail("no scaffold joined: the e2e run did no work")
         say(f"   {len(made)} artifacts byte-equal ({', '.join(sorted(made))})")
         say(f"   {joins} scaffolds in e2e.path")
-        say(f"   port (backend=cuda) wall {p_wall:.3f} s; stages:")
+        say(f"   card (backend=cuda) wall {p_wall:.3f} s; stages:")
         for ln in _stages(p_out):
             say("     " + ln)
-        say(f"   JAX package (backend={host}, index_backend=host) wall {r_wall:.3f} s; stages:")
+        say(f"   host (backend={host}, index_backend=host) wall {r_wall:.3f} s; stages:")
         for ln in _stages(r_out):
             say("     " + ln)
         counts = _counts_line(p_out, "sketch_counts")
         index = _counts_line(p_out, "index_counts")
-        say(f"   port counts: {json.dumps(counts)}")
-        say(f"   port index counts: {json.dumps(index)}")
+        say(f"   card run's counts: {json.dumps(counts)}")
+        say(f"   card run's index counts: {json.dumps(index)}")
+        if _counts_line(r_out, "sketch_counts")["hash"] or any(
+                v["launches"] for v in _counts_line(r_out, "index_counts").values()
+                if isinstance(v, dict)):
+            fail("the host path launched a kernel or a torch graph op: no independent oracle")
         for op in di.GRAPH_OPS:
             if index[op]["launches"] < 1 or index[op]["device"] != "cuda":
                 fail(f"graph op {op} did not run on the GPU in the e2e run: {index}")
         return counts
+
+
+JSON_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def main() -> int:
@@ -576,21 +725,25 @@ def main() -> int:
     build()
     times = kernels()
     times["copy"] = copy()
-    sketch()
-    prof_counts = prof()  # the copy kernel's main path
+    counts = {"window_emit_gmem": sketch()}
+    counts["copy"] = prof()["copy"]  # the profiler is the copy kernel's main path
     graph()
-    counts = e2e([24_000_000, 22_000_000, 20_000_000, 18_000_000, 16_000_000], 2000)
-    counts["copy"] = prof_counts["copy"]
+    run = e2e([24_000_000, 22_000_000, 20_000_000, 18_000_000, 16_000_000], 2000)
+    if run["host_records"] != 0:
+        fail(f"{run['host_records']} records took the host sketcher")
+    counts.update({name: run[name] for name in ("hash", "window_emit", "window")})
+    loaded = [m for m in sys.modules
+              if m == "jax" or m.startswith("jax.") or m == "ntjoin_tpu"
+              or m.startswith("ntjoin_tpu.")]
+    if loaded:
+        fail(f"JAX or the JAX package was imported: {loaded[:5]}")
     for name in sc.KERNELS:
         if counts[name] < 1:
             fail(f"kernel {name} was not launched on its main path")
-    if counts["host_records"] != 0:
-        fail(f"{counts['host_records']} records took the host sketcher")
-    if "jax" in sys.modules:
-        fail("JAX was imported")
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1], "launches": counts[name], **times[name]}
+         "replaces": SOURCES[name][1], "launches": counts[name],
+         **{key: times[name][key] for key in JSON_KEYS}}
         for name in sc.KERNELS
     ]}))
     say(smi)

@@ -14,31 +14,33 @@ The key=value surface is the JAX package's.  Sketch backends:
 Index backends (``index_backend=``): ``device`` runs the shared index,
 graph build, connected components and path passes as torch ops
 (``core/scaffolder.py``) on the sketch's device (``cuda`` for
-``backend=cuda|auto``, ``device=`` otherwise); ``host`` runs the JAX
-package's host layers; ``auto`` (the default) is ``device`` for the cuda and
-torch backends and ``host`` for native and numpy, as ``ntjoin_tpu.cli``
-resolves it for its device backends.  Options whose device code is not
-ported yet are refused.
+``backend=cuda|auto``, ``device=`` otherwise); ``host`` runs the port's
+NumPy host layers (``core/assembly.py``, ``graph/``); ``auto`` (the
+default) is ``device`` for the cuda and torch backends and ``host`` for
+native and numpy, as ``ntjoin_tpu.cli`` resolves it for its device
+backends.  Options whose device code is not ported yet are refused.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import subprocess
 import sys
 
 import numpy as np
 import torch
 
-from ntjoin_tpu.cli import _gzip_artifact, _parse_vars, _truthy
-from ntjoin_tpu.core.assembly import AssemblySketch
-from ntjoin_tpu.core.config import ScaffoldConfig
-from ntjoin_tpu.emit.writers import write_minimizer_tsv
-from ntjoin_tpu.io.fasta import read_fasta, write_fai
-from ntjoin_tpu.utils.atomic import atomic_write
-from ntjoin_tpu.utils.timers import StageTimers
+from ntjoin_tpu_torch.core.assembly import AssemblySketch
+from ntjoin_tpu_torch.core.config import ScaffoldConfig
 from ntjoin_tpu_torch.core.scaffolder import Scaffolder
+from ntjoin_tpu_torch.emit.writers import write_minimizer_tsv
+from ntjoin_tpu_torch.io import native
+from ntjoin_tpu_torch.io.fasta import read_fasta, write_fai
 from ntjoin_tpu_torch.ops import device_index, sketch_cuda
+from ntjoin_tpu_torch.ops.nthash_np import sketch_codes
+from ntjoin_tpu_torch.utils.atomic import atomic_write
+from ntjoin_tpu_torch.utils.timers import StageTimers
 
 USAGE = (
     "usage: python -m ntjoin_tpu_torch.cli assemble [-B] target=<fa> references='<fa> ...' "
@@ -46,6 +48,69 @@ USAGE = (
     "[index_backend=auto|device|host] [device=cpu] [agp=True] [time=True] ...  "
     "(keys as in ntjoin_tpu.cli)"
 )
+
+_DEFAULTS = {
+    "target": "None",
+    "references": "None",
+    "reference_config": "None",
+    "reference_weights": "None",
+    "target_weight": "1",
+    "w": "1000",
+    "k": "32",
+    "overlap": "True",
+    "overlap_w": "10",
+    "overlap_k": "15",
+    "t": "4",
+    "assemble_t": "1",
+    "n": "1",
+    "g": "20",
+    "overlap_g": "",
+    "G": "0",
+    "mkt": "False",
+    "agp": "False",
+    "m": "90",
+    "no_cut": "False",
+    "time": "False",
+    "gzip": "False",
+    "prefix": "",
+    "backend": "auto",
+    # filter/graph stage: host | device | auto (see _index_backend)
+    "index_backend": "auto",
+    # the multi-process mode's keys: accepted, refused unless left at these
+    "coordinator": "None",
+    "n_procs": "1",
+    "process_id": "0",
+    "local_devices": "None",
+}
+
+
+def _parse_vars(words: list[str]) -> dict[str, str]:
+    out = dict(_DEFAULTS)
+    for word in words:
+        if "=" not in word:
+            raise SystemExit(f"ERROR: unrecognized argument {word!r}")
+        key, val = word.split("=", 1)
+        out[key] = val
+    return out
+
+
+def _truthy(val: str) -> bool:
+    return val.strip().lower() in ("true", "1", "yes")
+
+
+def _gzip_artifact(path: str, threads: int = 4) -> str:
+    """Compress ``path`` in place to ``path.gz`` (pigz > gzip > stdlib)."""
+    if shutil.which("pigz"):
+        subprocess.run(["pigz", f"-p{threads}", "-f", path], check=True)
+    elif shutil.which("gzip"):
+        subprocess.run(["gzip", "-f", path], check=True)
+    else:  # stdlib fallback so the rule works in tool-less images
+        import gzip as _gz
+
+        with open(path, "rb") as src, _gz.open(path + ".gz", "wb") as dst:
+            shutil.copyfileobj(src, dst)
+        os.remove(path)
+    return path + ".gz"
 
 
 def _refusal(v: dict[str, str]) -> str | None:
@@ -82,13 +147,11 @@ def _sketcher(backend: str, device: str):
         return lambda codes, k, w: sketch_cuda.sketch_records_torch(
             codes, k, w, device, plain=True)
     if backend == "native":
-        from ntjoin_tpu.io.native import available, sketch_codes_native
-
-        if not available():
-            raise RuntimeError("native library unavailable (make -C native)")
-        one = sketch_codes_native
+        if not native.available():
+            raise RuntimeError("native library unavailable (no g++ to build it)")
+        one = native.sketch_codes_native
     else:
-        from ntjoin_tpu.ops.nthash_np import sketch_codes as one
+        one = sketch_codes
     return lambda codes, k, w: [one(c, k, w) for c in codes]
 
 

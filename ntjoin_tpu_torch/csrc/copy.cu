@@ -13,8 +13,11 @@
 // writes 512 neighbouring bytes per access; the grid covers the array in one
 // pass.  A grid capped at 16 blocks per SM striding over the array was 5%
 // slower than `copy_` on the H100, with or without the unroll; one pass is
-// within ~1% of it (PERF.md).  The last nbytes % 16 bytes are copied one by
-// one.
+// within ~1% of it (PERF.md).  Persistent blocks moving the array as bulk
+// asynchronous copies through shared memory (`cp.async.bulk`, an mbarrier
+// ring of 4 x 16 KB, one issuing thread, two blocks per SM) were 3% slower
+// than this kernel in every round on the same array, so this one stays
+// (PERF.md).  The last nbytes % 16 bytes are copied one by one.
 #include <cstdint>
 
 #include <cuda_runtime.h>

@@ -10,6 +10,9 @@
 // Row r of the output is the k-mer that ENDS at row r:
 //   h[r, c]   = fwd + rev (mod 2^64), the canonical ntHash2 value,
 //   val[r, c] = 1 iff rows r-k+1 .. r all hold a valid base (code < 4).
+// Row r of h starts at h + r * h_pitch and row r of val at val + r * v_pitch
+// (in elements, both >= C): the wrapper rounds the pitch up so that the
+// window/emission kernel can stage rows by 16-byte asynchronous copies.
 // Both recurrences are state = rot1(state) ^ m, with the seed terms of the
 // incoming and outgoing base pre-rotated on the host (seed_tables), so an
 // invalid base (seed 0) keeps the rolling state consistent through N runs.
@@ -44,7 +47,8 @@ __device__ __forceinline__ uint64_t pick(const uint64_t (&t)[4], unsigned c) {
 // indexed by base code.
 __global__ void hash_kernel(const uint8_t* __restrict__ flat, int64_t L, int64_t C,
                             int64_t rows, int k, const uint64_t* __restrict__ tables,
-                            uint64_t* __restrict__ h, int8_t* __restrict__ val) {
+                            uint64_t* __restrict__ h, int64_t h_pitch,
+                            int8_t* __restrict__ val, int64_t v_pitch) {
   const int64_t chunk = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (chunk >= C) return;
   uint64_t t_in[4], t_out[4], t_rc_out[4], t_rc_in[4];
@@ -64,19 +68,20 @@ __global__ void hash_kernel(const uint8_t* __restrict__ flat, int64_t L, int64_t
     f = srol1(f) ^ pick(t_out, out) ^ pick(t_in, in);
     r = sror1(r) ^ pick(t_rc_out, out) ^ pick(t_rc_in, in);
     if (in >= 4u) last_bad = i;
-    h[i * C + chunk] = f + r;
-    val[i * C + chunk] = (int8_t)(i - last_bad >= k);
+    h[i * h_pitch + chunk] = f + r;
+    val[i * v_pitch + chunk] = (int8_t)(i - last_bad >= k);
   }
 }
 
 }  // namespace
 
 extern "C" int nj_hash(const void* flat, int64_t L, int64_t C, int64_t rows, int k,
-                       const void* tables, void* h, void* val, void* stream) {
+                       const void* tables, void* h, int64_t h_pitch, void* val,
+                       int64_t v_pitch, void* stream) {
   const int threads = 64;
   const int64_t blocks = (C + threads - 1) / threads;
   hash_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)flat, L, C, rows, k, (const uint64_t*)tables, (uint64_t*)h,
-      (int8_t*)val);
+      h_pitch, (int8_t*)val, v_pitch);
   return (int)cudaGetLastError();
 }

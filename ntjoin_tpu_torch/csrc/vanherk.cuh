@@ -1,6 +1,7 @@
-// Per-thread Van Herk / Gil-Werman sliding-window argmin, shared by the
-// window/emission kernel (window_emit.cu) and the exact window kernel
-// (window.cu).
+// Van Herk / Gil-Werman sliding-window argmin, shared by the window/emission
+// kernel (window_emit.cu) and the exact window kernel (window.cu): first the
+// per-thread passes over device memory, then (namespace tile) the pieces of
+// the thread-block version that keeps a tile of chunks in shared memory.
 //
 // One thread owns one chunk column hcol of the end-indexed hash array
 // h (rows, hC) and one column scol of the scratch arrays (w, sC).  Element s
@@ -89,5 +90,79 @@ __device__ void scan(const uint64_t* __restrict__ h, int64_t hC, int64_t hcol, i
   for (int64_t base = 0; base < L; base += w)
     scan_block(h, hC, hcol, L, w, off, base, sk, sp, sC, scol, sink);
 }
+
+// -- pieces of the shared-memory tile version (window_emit.cu) -----------------
+//
+// A segment of w rows of one chunk column is cut into kGroups row groups, one
+// thread each.  A (key, arg) pair is a minimum and the row offset it sits at;
+// kNoArg marks "no row".  left_wins keeps the left operand on equal keys, so
+// folding rows or groups left to right yields the leftmost minimum, and
+// (~0, kNoArg) is neutral on either side wherever the result is only used
+// after a strict `<` (prefix side) or is overwritten by a row of the thread's
+// own group through `<=` (suffix side).
+namespace tile {
+
+constexpr int kGroups = 64;  // row groups of a segment: two per lane of one warp
+constexpr uint32_t kNoArg = 0xFFFF;
+
+struct KeyArg {
+  uint64_t key;
+  uint32_t arg;
+};
+
+__device__ __forceinline__ KeyArg left_wins(KeyArg l, KeyArg r) { return r.key < l.key ? r : l; }
+
+__device__ __forceinline__ KeyArg shfl_up(KeyArg x, int d) {
+  return {__shfl_up_sync(0xffffffffu, (unsigned long long)x.key, d),
+          __shfl_up_sync(0xffffffffu, x.arg, d)};
+}
+
+__device__ __forceinline__ KeyArg shfl_down(KeyArg x, int d) {
+  return {__shfl_down_sync(0xffffffffu, (unsigned long long)x.key, d),
+          __shfl_down_sync(0xffffffffu, x.arg, d)};
+}
+
+// One warp, one column: lane l holds the minima a, b of groups 2l and 2l+1.
+// On return pre_* are the minima over all groups before 2l and before 2l+1,
+// suf_* over all groups after 2l and after 2l+1 (exclusive both ways).
+__device__ __forceinline__ void scan_groups(KeyArg a, KeyArg b, int lane, KeyArg& pre_a,
+                                            KeyArg& pre_b, KeyArg& suf_a, KeyArg& suf_b) {
+  const KeyArg none{~0ull, kNoArg};
+  const KeyArg both = left_wins(a, b);
+  KeyArg x = both;
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const KeyArg o = shfl_up(x, d);
+    if (lane >= d) x = left_wins(o, x);
+  }
+  pre_a = shfl_up(x, 1);
+  if (lane == 0) pre_a = none;
+  pre_b = left_wins(pre_a, a);
+  KeyArg y = both;
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const KeyArg o = shfl_down(y, d);
+    if (lane + d < 32) y = left_wins(y, o);
+  }
+  suf_b = shfl_down(y, 1);
+  if (lane == 31) suf_b = none;
+  suf_a = left_wins(b, suf_b);
+}
+
+// The same for counts: exclusive sums before groups 2l and 2l+1, and the total.
+__device__ __forceinline__ void scan_counts(int a, int b, int lane, int& pre_a, int& pre_b,
+                                            int& total) {
+  int x = a + b;
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const int o = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += o;
+  }
+  total = __shfl_sync(0xffffffffu, x, 31);
+  pre_a = x - (a + b);
+  pre_b = pre_a + a;
+}
+
+}  // namespace tile
 
 }  // namespace vanherk

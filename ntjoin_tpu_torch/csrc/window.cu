@@ -11,7 +11,8 @@
 // Contract (plain version: ntjoin_tpu_torch/ops/sketch_cuda.py,
 // window_argmin_ref).  For listed chunk c = chunks[i], am[j, i] = c*L + s,
 // where s is the leftmost element of minimal hash in window j of chunk c;
-// windows j in [0, L), elements at rows off + s of h (rows, C).
+// windows j in [0, L), elements at rows off + s of h (rows, C), row pitch
+// h_pitch elements.
 //
 // What bounds it on an H100: memory when many chunks are listed (per window
 // 16 B of hashes read, 24 B of scratch moved, 8 B written), latency when few
@@ -35,7 +36,7 @@ struct ArgSink {
 // Thread g takes block b = g / n_sel of listed chunk i = g % n_sel, so a
 // warp's threads share a block and read neighbouring chunks' hashes.
 // Scratch is (w, n_sel * nb), column g.
-__global__ void window_kernel(const uint64_t* __restrict__ h, int64_t L, int64_t C, int w,
+__global__ void window_kernel(const uint64_t* __restrict__ h, int64_t L, int64_t h_pitch, int w,
                               int64_t off, const int64_t* __restrict__ chunks, int64_t n_sel,
                               uint64_t* __restrict__ sk, int32_t* __restrict__ sp,
                               int64_t* __restrict__ am) {
@@ -45,19 +46,19 @@ __global__ void window_kernel(const uint64_t* __restrict__ h, int64_t L, int64_t
   const int64_t i = g % n_sel;
   const int64_t chunk = chunks[i];
   ArgSink sink{n_sel, i, chunk, L, am};
-  vanherk::scan_block(h, C, chunk, L, w, off, (g / n_sel) * w, sk, sp, n_sel * nb, g, sink);
+  vanherk::scan_block(h, h_pitch, chunk, L, w, off, (g / n_sel) * w, sk, sp, n_sel * nb, g, sink);
 }
 
 }  // namespace
 
 // sk, sp: scratch of w * n_sel * ceil(L / w) entries each.
-extern "C" int nj_window(const void* h, int64_t L, int64_t C, int w, int64_t off,
+extern "C" int nj_window(const void* h, int64_t L, int64_t h_pitch, int w, int64_t off,
                          const void* chunks, int64_t n_sel, void* sk, void* sp, void* am,
                          void* stream) {
   const int threads = 64;
   const int64_t blocks = (n_sel * ((L + w - 1) / w) + threads - 1) / threads;
   window_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)h, L, C, w, off, (const int64_t*)chunks, n_sel, (uint64_t*)sk,
+      (const uint64_t*)h, L, h_pitch, w, off, (const int64_t*)chunks, n_sel, (uint64_t*)sk,
       (int32_t*)sp, (int64_t*)am);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,333 @@
+"""FASTA input/output for the scaffolding engine.
+
+Host-side sequence handling: parse FASTA (optionally gzipped) into records,
+encode into the framework's uint8 base codes, write scaffold/`.fai` artifacts.
+Replaces the reference's btllib ``SeqReader`` (reference
+``ntjoin_assemble.py:308-323``), ``samtools faidx`` (``ntJoin:207-208``) and
+lh3 readfq parser (``read_fasta.py:6-46``).
+
+A fast C++ reader (``native/``) is used automatically for large inputs when
+the shared library has been built; this pure-python path is the portable
+fallback and the behavioural reference.
+"""
+from __future__ import annotations
+
+import gzip
+import os
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ntjoin_tpu_torch.ops.nthash_np import encode
+
+
+@dataclass
+class FastaRecord:
+    """One FASTA record: identifier, raw sequence, derived base codes."""
+
+    id: str
+    seq: str
+    _codes: np.ndarray | None = field(default=None, repr=False)
+
+    @property
+    def length(self) -> int:
+        return len(self.seq)
+
+    @property
+    def codes(self) -> np.ndarray:
+        if self._codes is None:
+            self._codes = encode(self.seq)
+        return self._codes
+
+
+def _open_text(path: str):
+    if path.endswith(".gz"):
+        return gzip.open(path, "rt")
+    return open(path, "r", encoding="utf-8")
+
+
+def read_fasta(path: str) -> list[FastaRecord]:
+    """Parse a FASTA file into records (order preserved).
+
+    Record ids are the first whitespace-separated token of the header, the
+    same convention btllib's SeqReader applies for the reference pipeline.
+    Uses the native C++ reader when built (an order of magnitude faster on
+    Gbp-scale inputs); this python loop is the portable fallback and the
+    gzip path.
+    """
+    if not path.endswith(".gz"):
+        try:
+            from ntjoin_tpu_torch.io.native import available, read_fasta_native
+
+            if available():
+                return read_fasta_native(path)
+        except Exception:  # pragma: no cover - fall back to python parsing
+            pass
+    records: list[FastaRecord] = []
+    name = None
+    chunks: list[str] = []
+    with _open_text(path) as fh:
+        for line in fh:
+            line = line.rstrip("\n")
+            if line.startswith(">"):
+                if name is not None:
+                    records.append(FastaRecord(name, "".join(chunks)))
+                name = (line[1:].split() or [""])[0]
+                chunks = []
+            elif name is not None:
+                chunks.append(line.strip())
+    if name is not None:
+        records.append(FastaRecord(name, "".join(chunks)))
+    return records
+
+
+def read_fasta_dict(path: str) -> dict[str, FastaRecord]:
+    """Parse FASTA into an insertion-ordered id -> record mapping."""
+    out: dict[str, FastaRecord] = {}
+    for rec in read_fasta(path):
+        out[rec.id] = rec
+    return out
+
+
+class FastaStore:
+    """Random-access facade over a FASTA file for the scaffolder.
+
+    The emission stages only ever need contig names, lengths, and
+    subsequence slices — never every sequence at once.  For plain FASTA
+    this is an mmap over the file driven by the ``.fai`` index (built on
+    demand), so a 3 Gbp draft costs pages touched, not 3 GB of Python
+    strings (the round-3 1 Gbp run peaked at 6.7 GB RSS holding whole
+    assemblies in memory; the ~3 Gbp human-scale north star must stay
+    under 16 GB).  Gzipped inputs fall back to in-memory records.
+    """
+
+    def __init__(self, path: str):
+        self._path = path
+        self._mm = None
+        self._records: dict[str, FastaRecord] | None = None
+        self._fai: dict[str, tuple[int, int, int, int]] = {}
+        self._order: list[str] = []
+        if path.endswith(".gz") or os.path.getsize(path) == 0:
+            # gz inputs and zero-byte files (mmap rejects empty maps) take
+            # the in-memory path
+            self._records = read_fasta_dict(path)
+            self._order = list(self._records)
+            return
+        import mmap
+
+        fai = path + ".fai"
+        if not os.path.exists(fai) or (
+            os.path.getmtime(fai) < os.path.getmtime(path)
+        ):
+            write_fai(path, fai)
+        with open(fai, "r", encoding="utf-8") as fh:
+            for line in fh:
+                name, length, offset, linebases, linewidth = line.split("\t")
+                self._order.append(name)
+                self._fai[name] = (
+                    int(length), int(offset), int(linebases), int(linewidth)
+                )
+        self._fh = open(path, "rb")
+        self._mm = mmap.mmap(self._fh.fileno(), 0, access=mmap.ACCESS_READ)
+        # Ragged records (non-uniform sequence line widths — the writer marks
+        # them linewidth=0; a pre-existing stale .fai is additionally
+        # spot-checked below) cannot be sliced by byte arithmetic, so they are
+        # materialised whole from the raw bytes on first access.
+        self._ragged: dict[str, str | None] = {}
+        size = len(self._mm)
+        for i, name in enumerate(self._order):
+            length, offset, lb, lw = self._fai[name]
+            if lw == 0 and length > 0:
+                self._ragged[name] = None
+                continue
+            if length == 0:
+                continue
+            # Cheap validation for indexes we did not just write: the byte
+            # just past the record's last base must be a newline (or EOF),
+            # and the byte before the first base must end the header line.
+            # A ragged record's predicted end lands mid-line on a base.
+            nlines = -(-length // lb) if lb else 1
+            end = offset + (nlines - 1) * lw + (length - (nlines - 1) * lb)
+            if (offset > 0 and self._mm[offset - 1 : offset] != b"\n") or (
+                end < size and self._mm[end : end + 1] not in (b"\n", b"\r")
+            ):
+                self._ragged[name] = None
+            elif i == len(self._order) - 1:
+                # LAST record: the end-byte check is weak (predicted end
+                # can coincide with EOF even when ragged), so also require
+                # the record's byte span to equal the predicted layout's
+                # (bases + per-line newline bytes, minus the final line's
+                # newline when the file doesn't end with one)
+                nlb = lw - lb
+                trailing = size > 0 and self._mm[size - 1 : size] == b"\n"
+                expected = length + nlines * nlb - (0 if trailing else nlb)
+                if size - offset != expected:
+                    self._ragged[name] = None
+
+    def names(self) -> list[str]:
+        return list(self._order)
+
+    def __contains__(self, name: str) -> bool:
+        if self._records is not None:
+            return name in self._records
+        return name in self._fai
+
+    def length(self, name: str) -> int:
+        if self._records is not None:
+            return self._records[name].length
+        return self._fai[name][0]
+
+    def subseq(self, name: str, start: int, end: int) -> str:
+        """Bases [start, end) of a contig (0-based, half-open)."""
+        if self._records is not None:
+            return self._records[name].seq[start:end]
+        length, offset, lb, lw = self._fai[name]
+        start = max(0, min(start, length))
+        end = max(start, min(end, length))
+        if end == start:
+            return ""
+        if name in self._ragged:
+            return self._materialize(name)[start:end]
+        b0 = offset + (start // lb) * lw + start % lb
+        b1 = offset + ((end - 1) // lb) * lw + (end - 1) % lb + 1
+        return self._mm[b0:b1].translate(None, b"\r\n").decode()
+
+    def _materialize(self, name: str) -> str:
+        """Whole sequence of a ragged record, decoded from the raw bytes.
+
+        The record's data spans from just past its header line (`offset`) to
+        the start of the next record's header (or EOF); stripping newlines
+        recovers the sequence regardless of line-width irregularities.
+        """
+        seq = self._ragged[name]
+        if seq is None:
+            idx = self._order.index(name)
+            start = self._fai[name][1]
+            if idx + 1 < len(self._order):
+                nxt = self._fai[self._order[idx + 1]][1]
+                stop = self._mm.rfind(b"\n>", start, nxt) + 1
+                if stop <= 0:
+                    stop = nxt  # malformed; better long than truncated
+            else:
+                stop = len(self._mm)
+            seq = self._mm[start:stop].translate(None, b"\r\n").decode()
+            if len(seq) != self._fai[name][0]:  # defensive: full reparse
+                seq = read_fasta_dict(self._path)[name].seq
+            self._ragged[name] = seq
+        return seq
+
+    def close(self) -> None:
+        if self._mm is not None:
+            self._mm.close()
+            self._fh.close()
+            self._mm = None
+
+
+def write_fai(path: str, out_path: str | None = None) -> str:
+    """Write a ``.fai`` index for a FASTA file (mirrors ``samtools faidx``).
+
+    Columns: name, length, byte offset of first base, bases per line, bytes
+    per line.  Only needed to mirror the reference's artifact set.
+    """
+    from ntjoin_tpu_torch.utils.atomic import atomic_write
+
+    out_path = out_path or path + ".fai"
+    if not path.endswith(".gz"):
+        from ntjoin_tpu_torch.io import native as _native
+
+        lib = _native._load()
+        if lib is not None:
+            from ntjoin_tpu_torch.utils.atomic import atomic_path
+
+            class _NativeFaiFailed(Exception):
+                pass
+
+            try:
+                with atomic_path(out_path) as tmp:
+                    if lib.nj_write_fai(path.encode(), tmp.encode()) < 0:
+                        raise _NativeFaiFailed
+                return out_path
+            except _NativeFaiFailed:
+                pass  # python writer takes over
+    rows = []
+    with open(path, "rb") as fh:
+        name = None
+        length = 0
+        offset = 0
+        linebases = 0
+        linewidth = 0
+        prev_stripped = 0
+        prev_raw = 0
+        first_line = True
+        uniform = True
+        saw_blank = False
+        pos = 0
+
+        def _flush():
+            # the final sequence line may be SHORTER than linebases but
+            # never longer (offset arithmetic would walk into a phantom
+            # next line)
+            ok = uniform and (first_line or prev_stripped <= linebases)
+            lb = linebases if ok else 0
+            lw = linewidth if ok else 0
+            rows.append((name, length, offset, lb, lw))
+
+        for raw in fh:
+            line_len = len(raw)
+            stripped = raw.rstrip(b"\r\n")
+            if stripped.startswith(b">"):
+                if name is not None:
+                    _flush()
+                name = (stripped[1:].split() or [b""])[0].decode()
+                length = 0
+                offset = pos + line_len
+                first_line = True
+                uniform = True
+                saw_blank = False
+                linebases = 0  # empty records write 0/0 like samtools
+                linewidth = 0
+            elif name is not None and stripped:
+                if first_line:
+                    linebases = len(stripped)
+                    linewidth = line_len
+                    first_line = False
+                    if saw_blank:  # blank line shifted `offset`
+                        uniform = False
+                elif (
+                    prev_stripped != linebases
+                    or prev_raw != linewidth
+                    or saw_blank
+                ):
+                    # The previous sequence line was not the record's last,
+                    # so it must have been full-width (the rule samtools
+                    # faidx enforces by erroring out); interior blank lines
+                    # break the offset arithmetic too.  Such records get the
+                    # linebases=linewidth=0 "ragged" sentinel and FastaStore
+                    # materialises them from the raw bytes.
+                    uniform = False
+                prev_stripped = len(stripped)
+                prev_raw = line_len
+                length += len(stripped)
+            elif name is not None:
+                saw_blank = True
+            pos += line_len
+        if name is not None:
+            _flush()
+    with atomic_write(out_path) as out:
+        for row in rows:
+            out.write("\t".join(str(x) for x in row) + "\n")
+    return out_path
+
+
+def reverse_complement(seq: str) -> str:
+    """Reverse complement with the full IUPAC alphabet.
+
+    Same translation contract as reference ``ntjoin_utils.py:145-150``.
+    """
+    return seq[::-1].translate(_RC_TABLE)
+
+
+_RC_TABLE = str.maketrans(
+    "ACGTUNMRWSYKVHDBacgtunmrwsykvhdb",
+    "TGCAANKYWSRMBDHVtgcaankywsrmbdhv",
+)

@@ -40,7 +40,7 @@ import time
 import numpy as np
 import torch
 
-from ntjoin_tpu.constants import CODE_INVALID
+from ntjoin_tpu_torch.constants import CODE_INVALID
 from ntjoin_tpu_torch.ops import sketch_cuda as sc
 from ntjoin_tpu_torch.ops.membw import copy_words, copy_words_ref
 

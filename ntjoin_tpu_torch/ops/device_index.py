@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ntjoin_tpu.core.assembly import SharedIndex
+from ntjoin_tpu_torch.core.assembly import SharedIndex
 
 GRAPH_OPS = ("shared_filter", "edge_tally", "cc", "escalate", "rank")
 COUNTS: dict[str, int] = {}

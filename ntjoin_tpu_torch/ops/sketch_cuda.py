@@ -14,7 +14,9 @@ Pipeline of one batch (``sketch_fused_torch``):
    window after an invalid one is forced to emit (a record's first window).
 4. Window/emission (kernel 2, ``csrc/window_emit.cu``): per-chunk lists of
    emitted (position, canonical hash), bounded by a capacity, plus the true
-   per-chunk counts.
+   per-chunk counts.  Two routes, chosen from w alone (``emit_tile``): tiles
+   of chunks staged in shared memory, or, where 2w rows of the narrowest tile
+   do not fit there, one thread per chunk with its scratch in device memory.
 5. Compaction (torch): exclusive cumsum of the counts and one gather.
 6. For the chunks whose list overflowed, the exact window op (kernel 3,
    ``csrc/window.cu``) gives every window's argmin; their emission mask is
@@ -26,6 +28,10 @@ previous chunk's last argmin at most once, and that duplicate is dropped.
 Hashes are int64 tensors holding the uint64 bits (see ``u64``).  Each kernel
 wrapper runs the plain version for a CPU tensor and launches its kernel for a
 CUDA tensor; the kernels are built with nvcc on first use into ``_build/``.
+On the card the (rows, C) hash and flag arrays are views of buffers whose
+row pitch is C rounded up to ``PITCH`` columns (``pitched``), so that rows
+start on 128-byte boundaries and kernel 2 can stage them by 16-byte
+asynchronous copies; the plain versions see the same (rows, C) views.
 """
 from __future__ import annotations
 
@@ -38,10 +44,11 @@ import time
 import numpy as np
 import torch
 
-from ntjoin_tpu.constants import CODE_INVALID, SEEDS, SROL_PERIOD
-from ntjoin_tpu.ops.nthash_np import Sketch, _window_lexmin, canonical_hashes
-from ntjoin_tpu.ops.nthash_np import derive_hash as derive_hash_np
+from ntjoin_tpu_torch.constants import CODE_INVALID, SEEDS, SROL_PERIOD
+from ntjoin_tpu_torch.io import native
 from ntjoin_tpu_torch.ops import u64
+from ntjoin_tpu_torch.ops.nthash_np import Sketch, _window_lexmin, canonical_hashes, sketch_codes
+from ntjoin_tpu_torch.ops.nthash_np import derive_hash as derive_hash_np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -50,9 +57,10 @@ LIB_PATH = os.path.join(_PKG, "_build", "libntjoin_cuda.so")
 # Kernel launches by op, calls of each op's plain version, records the host
 # sketcher took, and runs of the exact window path.  Plain counters so that
 # a run can show which code served it; ``reset_counts`` zeroes them.  The
-# sketch runs the first three kernels; the copy (``ops/membw.py``) serves
-# the profiler.
-KERNELS = ("hash", "window_emit", "window", "copy")
+# sketch runs ``hash``, one of the two window/emission routes and
+# ``window``; the copy (``ops/membw.py``) serves the profiler.
+KERNELS = ("hash", "window_emit", "window_emit_gmem", "window", "copy")
+_OPS = ("hash", "window_emit", "window", "copy")  # each has one plain version
 COUNTS: dict[str, int] = {}
 # Host-clock seconds of ``sketch_records_torch`` by stage, accumulated over
 # calls (the counterpart of ``sketch_pallas._STAGES``): plan (N
@@ -66,6 +74,7 @@ def reset_counts() -> None:
     COUNTS.clear()
     for name in KERNELS:
         COUNTS[name] = 0
+    for name in _OPS:
         COUNTS[name + "_plain"] = 0
     COUNTS["host_records"] = 0
     COUNTS["exact_runs"] = 0
@@ -128,7 +137,8 @@ _TABLES: dict[tuple[int, torch.device], torch.Tensor] = {}
 
 def build() -> tuple[float, str]:
     """Compile ``csrc/*.cu`` with nvcc into ``LIB_PATH`` unless the library is
-    newer than every source.  Returns (seconds spent, nvcc's report)."""
+    newer than every source: one nvcc per source, all started together, then
+    one link.  Returns (seconds spent, nvcc's report)."""
     srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
     deps = srcs + glob.glob(os.path.join(_CSRC, "*.cuh"))
     if os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= max(
@@ -139,19 +149,33 @@ def build() -> tuple[float, str]:
 
     if CUDA_HOME is None:
         raise RuntimeError("cannot build the CUDA kernels: no CUDA toolkit found")
-    os.makedirs(os.path.dirname(LIB_PATH), exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [
-        os.path.join(CUDA_HOME, "bin", "nvcc"),
-        "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *srcs,
-    ]
+    out_dir = os.path.dirname(LIB_PATH)
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = [os.path.join(CUDA_HOME, "bin", "nvcc"), "-gencode", "arch=compute_90a,code=sm_90a"]
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(out_dir, f"{os.path.basename(p)}.{tag}.o") for p in srcs]
     t0 = time.monotonic()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader sees old or new
-    return time.monotonic() - t0, res.stderr
+    procs = [
+        subprocess.Popen(
+            [*nvcc, "-std=c++17", "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC", "-c", "-o", o, p],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for p, o in zip(srcs, objs)
+    ]
+    logs = [proc.communicate()[1] for proc in procs]  # waits for every compiler
+    try:
+        for src, proc, log in zip(srcs, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n{log}")
+        tmp = f"{LIB_PATH}.{tag}"
+        res = subprocess.run([*nvcc, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader sees old or new
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    return time.monotonic() - t0, "".join(logs)
 
 
 def _lib():
@@ -161,8 +185,9 @@ def _lib():
         lib = ctypes.CDLL(LIB_PATH)
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         sigs = {
-            "nj_hash": [p, i64, i64, i64, i32, p, p, p, p],
-            "nj_window_emit": [p, p, i64, i64, i32, i64, i64, p, p, p, p, p, p],
+            "nj_hash": [p, i64, i64, i64, i32, p, p, i64, p, i64, p],
+            "nj_window_emit": [p, i64, p, i64, i64, i64, i32, i64, i64, i32, p, p, p, p],
+            "nj_window_emit_gmem": [p, i64, p, i64, i64, i64, i32, i64, i64, p, p, p, p, p, p],
             "nj_window": [p, i64, i64, i32, i64, p, i64, p, p, p, p],
             "nj_copy": [p, p, i64, p],
         }
@@ -199,6 +224,14 @@ def _check(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str) -> None
         )
 
 
+def _check_rows(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str) -> None:
+    """A (rows, C) array whose rows may be pitched: unit column stride."""
+    if (t.dtype != dtype or tuple(t.shape) != shape or t.stride(1) != 1
+            or t.stride(0) < shape[1]):
+        raise ValueError(f"{name}: want {dtype} {shape} with unit column stride, got "
+                         f"{t.dtype} {tuple(t.shape)} strides {t.stride()}")
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU one; raises otherwise."""
     if t.device.type == "cuda":
@@ -224,6 +257,16 @@ def _slot_cap(L: int, w: int) -> int:
     densest for non-repeat sequence (~2 on average), plus forced record
     starts."""
     return 4 * -(-L // w) + 16
+
+
+# Row pitch of the device arrays, in columns: 128 bytes of int64 hashes.
+PITCH = 16
+
+
+def pitched(rows: int, C: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Uninitialised (rows, C) view of a buffer whose row pitch is C rounded
+    up to ``PITCH`` columns."""
+    return torch.empty((rows, -(-C // PITCH) * PITCH), dtype=dtype, device=device)[:, :C]
 
 
 def _chunk_view(flat: torch.Tensor, L: int, C: int, rows: int) -> torch.Tensor:
@@ -270,7 +313,7 @@ def hash_chunked(flat: torch.Tensor, L: int, C: int, rows: int,
                  k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Op 1 on the int8 stream ``flat`` (length >= (C-1)*L + rows): kernel
     1 for a CUDA tensor, ``hash_chunked_ref`` of the chunk view for a CPU
-    one."""
+    one.  On the card both outputs are ``pitched``."""
     if flat.dim() != 1 or flat.shape[0] < (C - 1) * L + rows:
         raise ValueError(f"stream of {tuple(flat.shape)} too short for C={C} L={L} rows={rows}")
     if not _on_cuda(flat):
@@ -280,11 +323,12 @@ def hash_chunked(flat: torch.Tensor, L: int, C: int, rows: int,
     key = (k, dev)
     if key not in _TABLES:
         _TABLES[key] = torch.from_numpy(seed_tables(k)).to(dev)
-    h = torch.empty((rows, C), dtype=torch.int64, device=dev)
-    val = torch.empty((rows, C), dtype=torch.int8, device=dev)
+    h = pitched(rows, C, torch.int64, dev)
+    val = pitched(rows, C, torch.int8, dev)
     with torch.cuda.device(dev):
         err = _lib().nj_hash(flat.data_ptr(), L, C, rows, k, _TABLES[key].data_ptr(),
-                             h.data_ptr(), val.data_ptr(), _stream(flat))
+                             h.data_ptr(), h.stride(0), val.data_ptr(), val.stride(0),
+                             _stream(flat))
     _launched(err, "hash")
     return h, val
 
@@ -371,29 +415,81 @@ def _check_window_args(h: torch.Tensor, L: int, w: int, off: int) -> None:
         raise ValueError(f"chunk length L={L} too long for int32 window indices")
 
 
-def window_emit(h: torch.Tensor, flags: torch.Tensor, L: int, w: int, off: int,
-                cap: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Op 2: kernel 2 for CUDA tensors, ``window_emit_ref`` for CPU ones."""
-    _check_window_args(h, L, w, off)
-    if not _on_cuda(h):
-        return window_emit_ref(h, flags, L, w, off, cap)
+# Shared memory a block may ask for on an H100 (227 KB), and the row groups
+# per chunk of kernel 2's shared-memory route (csrc/vanherk.cuh, kGroups).
+_SMEM_MAX = 232_448
+_EMIT_GROUPS = 64
+
+
+def emit_tile(w: int) -> int:
+    """Chunks per thread block of kernel 2's shared-memory route for window
+    w: the widest of 8, 4, 2 whose three w-row segments, per-window
+    argmins and flags fit in a block's shared memory (the layout of
+    ``tile_smem_bytes`` in csrc/window_emit.cu), or 0 where none does and
+    the device-memory route serves."""
+    for tile in (8, 4, 2):
+        g = _EMIT_GROUPS * tile
+        if 27 * w * tile + 26 * g + 8 * tile <= _SMEM_MAX:
+            return tile
+    return 0
+
+
+def _emit_outputs(cap: int, C: int, dev: torch.device):
+    return (torch.empty((cap, C), dtype=torch.int64, device=dev),
+            torch.empty((cap, C), dtype=torch.int64, device=dev),
+            torch.empty((C,), dtype=torch.int64, device=dev))
+
+
+def _window_emit_tile(h, flags, L: int, w: int, off: int, cap: int, tile: int):
+    """Kernel 2's shared-memory route on checked CUDA tensors."""
+    for name, t in (("hash", h), ("flag", flags)):
+        if t.stride(0) % PITCH or t.data_ptr() % 16:
+            raise ValueError(f"window_emit: {name} rows need a pitch that is a multiple of "
+                             f"{PITCH} columns (see pitched), got stride {t.stride(0)}")
     C = h.shape[1]
-    _check(h, torch.int64, tuple(h.shape), "window_emit h")
-    _check(flags, torch.int8, (L, C), "window_emit flags")
-    if flags.device != h.device:
-        raise ValueError(f"flags on {flags.device}, hashes on {h.device}")
-    dev = h.device
-    sk, sp = _scratch(w, C, dev)
-    pos = torch.empty((cap, C), dtype=torch.int64, device=dev)
-    hsh = torch.empty((cap, C), dtype=torch.int64, device=dev)
-    count = torch.empty((C,), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
+    pos, hsh, count = _emit_outputs(cap, C, h.device)
+    with torch.cuda.device(h.device):
         err = _lib().nj_window_emit(
-            h.data_ptr(), flags.data_ptr(), L, C, w, off, cap, sk.data_ptr(),
-            sp.data_ptr(), pos.data_ptr(), hsh.data_ptr(), count.data_ptr(), _stream(h),
+            h.data_ptr(), h.stride(0), flags.data_ptr(), flags.stride(0), L, C, w, off, cap,
+            tile, pos.data_ptr(), hsh.data_ptr(), count.data_ptr(), _stream(h),
         )
     _launched(err, "window_emit")
     return pos, hsh, count
+
+
+def _window_emit_gmem(h, flags, L: int, w: int, off: int, cap: int):
+    """Kernel 2's device-memory route on checked CUDA tensors."""
+    C = h.shape[1]
+    sk, sp = _scratch(w, C, h.device)
+    pos, hsh, count = _emit_outputs(cap, C, h.device)
+    with torch.cuda.device(h.device):
+        err = _lib().nj_window_emit_gmem(
+            h.data_ptr(), h.stride(0), flags.data_ptr(), flags.stride(0), L, C, w, off, cap,
+            sk.data_ptr(), sp.data_ptr(), pos.data_ptr(), hsh.data_ptr(), count.data_ptr(),
+            _stream(h),
+        )
+    _launched(err, "window_emit_gmem")
+    return pos, hsh, count
+
+
+def window_emit(h: torch.Tensor, flags: torch.Tensor, L: int, w: int, off: int,
+                cap: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Op 2: kernel 2 for CUDA tensors (its shared-memory route where
+    ``emit_tile(w)`` is not 0, counted as ``window_emit``; else its
+    device-memory route, counted as ``window_emit_gmem``),
+    ``window_emit_ref`` for CPU ones.  The shared-memory route wants ``h``
+    as ``pitched`` makes it."""
+    _check_window_args(h, L, w, off)
+    if not _on_cuda(h):
+        return window_emit_ref(h, flags, L, w, off, cap)
+    _check_rows(h, torch.int64, tuple(h.shape), "window_emit h")
+    _check_rows(flags, torch.int8, (L, h.shape[1]), "window_emit flags")
+    if flags.device != h.device:
+        raise ValueError(f"flags on {flags.device}, hashes on {h.device}")
+    tile = emit_tile(w)
+    if tile:
+        return _window_emit_tile(h, flags, L, w, off, cap, tile)
+    return _window_emit_gmem(h, flags, L, w, off, cap)
 
 
 def window_argmin(h: torch.Tensor, L: int, w: int, off: int,
@@ -403,10 +499,9 @@ def window_argmin(h: torch.Tensor, L: int, w: int, off: int,
     _check_window_args(h, L, w, off)
     if not _on_cuda(h):
         return window_argmin_ref(h, L, w, off, chunks)
-    C = h.shape[1]
     chunks = _all_chunks(h) if chunks is None else chunks
     n_sel = chunks.shape[0]
-    _check(h, torch.int64, tuple(h.shape), "window_argmin h")
+    _check_rows(h, torch.int64, tuple(h.shape), "window_argmin h")
     _check(chunks, torch.int64, (n_sel,), "window_argmin chunks")
     if chunks.device != h.device:
         raise ValueError(f"chunks on {chunks.device}, hashes on {h.device}")
@@ -416,7 +511,7 @@ def window_argmin(h: torch.Tensor, L: int, w: int, off: int,
         return am
     sk, sp = _scratch(w, n_sel * -(-L // w), dev)  # one column per (chunk, block)
     with torch.cuda.device(dev):
-        err = _lib().nj_window(h.data_ptr(), L, C, w, off, chunks.data_ptr(), n_sel,
+        err = _lib().nj_window(h.data_ptr(), L, h.stride(0), w, off, chunks.data_ptr(), n_sel,
                                sk.data_ptr(), sp.data_ptr(), am.data_ptr(), _stream(h))
     _launched(err, "window")
     return am
@@ -425,9 +520,24 @@ def window_argmin(h: torch.Tensor, L: int, w: int, off: int,
 # -- the fused batch sketch ---------------------------------------------------------
 
 
+def _padded(t: torch.Tensor) -> torch.Tensor:
+    """The whole buffer behind a ``pitched`` view, pad columns included (they
+    hold whatever the allocation held); any other tensor as it is."""
+    rows, C = t.shape
+    pitch = t.stride(0)
+    if (t.stride(1) == 1 and pitch > C and pitch % PITCH == 0 and t.storage_offset() == 0
+            and t.untyped_storage().nbytes() >= rows * pitch * t.element_size()):
+        return t.as_strided((rows, pitch), (pitch, 1))
+    return t
+
+
 def window_flags(val: torch.Tensor, L: int, w: int, off: int) -> torch.Tensor:
     """(L, C) int8: bit0 = all w k-mers of the window valid, bit1 = first
-    valid window after an invalid one (a record's first window)."""
+    valid window after an invalid one (a record's first window).  For a
+    ``pitched`` val the pass runs over the whole buffer, so the flags come out
+    pitched alike."""
+    n_cols = val.shape[1]
+    val = _padded(val)
     C = val.shape[1]
     v = val[off : off + L + w - 1].to(torch.int32)
     cs = torch.cat([torch.zeros((1, C), dtype=torch.int32, device=val.device),
@@ -435,7 +545,7 @@ def window_flags(val: torch.Tensor, L: int, w: int, off: int) -> torch.Tensor:
     valid = (cs[w : w + L] - cs[:L]) == w
     first = valid.clone()
     first[1:] &= ~valid[:-1]
-    return valid.to(torch.int8) | (first.to(torch.int8) << 1)
+    return (valid.to(torch.int8) | (first.to(torch.int8) << 1))[:, :n_cols]
 
 
 def _compact_lists(pos: torch.Tensor, hsh: torch.Tensor, count: torch.Tensor, total: int):
@@ -606,12 +716,8 @@ def _patch_emissions(codes, k: int, w: int, segs, nks, offs, patch_ivs):
 
 
 def _host_sketch(codes: np.ndarray, k: int, w: int) -> Sketch:
-    from ntjoin_tpu.io.native import available, sketch_codes_native
-
-    if available():
-        return sketch_codes_native(codes, k, w)
-    from ntjoin_tpu.ops.nthash_np import sketch_codes
-
+    if native.available():
+        return native.sketch_codes_native(codes, k, w)
     return sketch_codes(codes, k, w)
 
 
@@ -657,7 +763,7 @@ def sketch_records_torch(codes_list: list[np.ndarray], k: int, w: int,
                          device: str | torch.device = "cuda", *,
                          slot_cap: int | None = None, plain: bool = False) -> list[Sketch]:
     """Minimizer sketches of many records, bit-identical to
-    ``ntjoin_tpu.ops.nthash_np.sketch_codes`` on each.
+    ``ops.nthash_np.sketch_codes`` on each.
 
     N-free records go to the device whole; a record with N runs goes as its
     long clean segments, and the windows across its junctions are sketched

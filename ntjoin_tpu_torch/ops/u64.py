@@ -5,15 +5,15 @@ The ntHash2 values are unsigned 64-bit, but PyTorch on the CPU has no
 bits: add, multiply and xor wrap exactly as they would unsigned, unsigned
 order is signed order after flipping the top bit (:func:`ult`), and every
 right shift goes through :func:`lshr` because ``>>`` on ``int64`` is
-arithmetic.  The counterparts on python ints are ``ntjoin_tpu.constants``
-(``srol``, ``srol_n``, ``nte``) and ``ntjoin_tpu.ops.nthash_np.derive_hash``.
+arithmetic.  The counterparts on python ints are ``constants``
+(``srol``, ``srol_n``, ``nte``) and ``ops.nthash_np.derive_hash``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ntjoin_tpu.constants import MULTI_SEED, MULTI_SHIFT, ROT_HIGH_BITS, ROT_LOW_BITS
+from ntjoin_tpu_torch.constants import MULTI_SEED, MULTI_SHIFT, ROT_HIGH_BITS, ROT_LOW_BITS
 
 SIGN = -(1 << 63)  # int64 with only the top bit set
 

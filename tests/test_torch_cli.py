@@ -60,7 +60,7 @@ _PORT = (
 ])
 def test_port_cli_matches_jax_cli(tmp_path, fixture, prefix, extra, index_backend):
     """``index_backend=auto`` with ``backend=torch`` runs the port's device
-    index on the CPU; ``host`` the JAX package's host layers."""
+    index on the CPU; ``host`` the port's own host layers."""
     port, ref = tmp_path / "port", tmp_path / "ref"
     for d in (port, ref):
         d.mkdir()
@@ -91,6 +91,69 @@ def test_port_cli_matches_jax_cli(tmp_path, fixture, prefix, extra, index_backen
                           ("longer.unassigned.bed", "longer.target.fa.k32.w250.tsv.unassigned.bed")):
             with open(os.path.join(golden, want), encoding="utf-8") as fh:
                 assert (port / got).read_text() == fh.read(), want
+
+
+def _run_cli(module_or_code: list[str], args: list[str], cwd) -> subprocess.CompletedProcess:
+    res = subprocess.run([sys.executable, *module_or_code, *args], cwd=cwd,
+                         env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr + res.stdout
+    return res
+
+
+@pytest.mark.parametrize("backend", ["native", "numpy"])
+@pytest.mark.parametrize("fixture,prefix,extra", [
+    (_many_contigs, "many", []),
+    (_more_sequences, "longer", ["agp=True", "no_cut=True"]),
+])
+def test_port_host_backends_match_jax_cli(tmp_path, fixture, prefix, extra, backend):
+    """The port's host sketchers and host layers (``backend=native|numpy
+    index_backend=host``) give the JAX package's bytes for the same words,
+    and so does ``backend=torch device=cpu`` with the torch index."""
+    dirs = {name: tmp_path / name for name in ("jax", "port", "torch")}
+    for d in dirs.values():
+        d.mkdir()
+        fixture(d)
+    args = ["assemble", "-B", *_COMMON, f"prefix={prefix}", *extra]
+    words = [f"backend={backend}", "index_backend=host"]
+    _run_cli(["-m", "ntjoin_tpu.cli"], args + words, dirs["jax"])
+    res = _run_cli(["-c", _PORT], args + words + ["time=True"], dirs["port"])
+    sketch = json.loads(next(ln for ln in res.stdout.splitlines()
+                             if ln.startswith("sketch_counts\t")).split("\t", 1)[1])
+    index = json.loads(next(ln for ln in res.stdout.splitlines()
+                            if ln.startswith("index_counts\t")).split("\t", 1)[1])
+    assert not any(v for key, v in sketch.items()), sketch  # no kernel, no plain version
+    assert not any(index[op]["launches"] for op in index if op != "cc_rounds"), index
+    _run_cli(["-c", _PORT], args + ["backend=torch", "device=cpu"], dirs["torch"])
+    made = sorted(p.name for p in dirs["jax"].iterdir())
+    assert f"{prefix}.path" in made and "target.fa.k32.w250.n2.all.scaffolds.fa" in made
+    assert sorted(p.name for p in dirs["port"].iterdir() if not p.name.endswith(".time")) == made
+    for name in made:
+        want = (dirs["jax"] / name).read_bytes()
+        assert (dirs["port"] / name).read_bytes() == want, name
+        assert (dirs["torch"] / name).read_bytes() == want, name
+
+
+def test_own_cli_helpers_match_jax_cli(tmp_path):
+    """``_parse_vars``, ``_truthy`` and ``_gzip_artifact`` are the port's own
+    copies: same defaults, same verdicts, same file out."""
+    import gzip
+
+    from ntjoin_tpu import cli as jax_cli
+
+    assert cli._DEFAULTS == jax_cli._DEFAULTS
+    words = ["target=t.fa", "k=21", "references=a.fa b.fa", "x=1=2"]
+    assert cli._parse_vars(words) == jax_cli._parse_vars(words)
+    for bad in (cli._parse_vars, jax_cli._parse_vars):
+        with pytest.raises(SystemExit, match="unrecognized argument 'oops'"):
+            bad(["oops"])
+    for val in ("True", "true ", "1", "yes", "YES", "no", "0", "False", ""):
+        assert cli._truthy(val) == jax_cli._truthy(val), val
+    for name, fn in (("port.fa", cli._gzip_artifact), ("jax.fa", jax_cli._gzip_artifact)):
+        (tmp_path / name).write_text(">a\nACGT\n")
+        assert fn(str(tmp_path / name), threads=1) == str(tmp_path / name) + ".gz"
+        assert not (tmp_path / name).exists()
+        with gzip.open(tmp_path / (name + ".gz"), "rt") as fh:
+            assert fh.read() == ">a\nACGT\n"
 
 
 @pytest.mark.parametrize("word,item", [

@@ -204,3 +204,175 @@ def test_window_emit_lists_and_counts():
         assert torch.equal(pos[:m, c], want)
         assert (pos[m:, c] == -1).all() and (hsh[m:, c] == 0).all()
         assert torch.equal(hsh[:m, c], h[want - c * L + k - 1, c])
+
+
+# -- the pitched layout and the emission contract across unit seams -----------------
+#
+# On the card the hash and flag arrays are (rows, C) views of buffers whose
+# rows are C rounded up to 16 columns apart, and kernel 2 cuts a chunk's
+# windows into blocks of w that separate threads decide.  The plain versions
+# are what the kernel is held to there, so they are held here to the layout
+# (pad columns must not leak) and to the contract at the seams between blocks.
+
+
+def _chunked_hashes(codes, k, w):
+    """(h, val, flags, C, L) of the port's layout for one stream."""
+    n = codes.shape[0]
+    C, L = sc.layout(n, k, w)
+    flat = np.full(C * L + w + k - 2, 4, dtype=np.int8)
+    flat[:n] = codes
+    h, val = sc.hash_chunked(torch.from_numpy(flat), L, C, L + w + k - 2, k)
+    return h, val, sc.window_flags(val, L, w, k - 1), C, L
+
+
+def _emission_lists(h_u64, flags, L, w, off, cap):
+    """The contract, chunk by chunk, from the NumPy lexmin."""
+    C = h_u64.shape[1]
+    pos = np.full((cap, C), -1, np.int64)
+    hsh = np.zeros((cap, C), np.uint64)
+    count = np.zeros(C, np.int64)
+    for c in range(C):
+        col = h_u64[off : off + L + w - 1, c]
+        am = _window_lexmin(col, w)[:L]
+        prev = np.concatenate([[-1], am[:-1]])
+        f = flags[:, c]
+        emit = ((f & 1) != 0) & (((f & 2) != 0) | (am != prev))
+        count[c] = emit.sum()
+        s = am[emit][:cap]
+        pos[: s.shape[0], c] = c * L + s
+        hsh[: s.shape[0], c] = col[s]
+    return pos, hsh, count
+
+
+def test_pitched_layout_matches_unpitched():
+    k, w = 15, 16
+    rng = np.random.default_rng(5)
+    codes = rng.integers(0, 4, size=9_000).astype(np.int8)
+    codes[4_000:4_030] = 4
+    h, val, flags, C, L = _chunked_hashes(codes, k, w)
+    assert C % sc.PITCH != 0 and h.stride(0) == C  # the CPU wrappers do not pad
+    hp = sc.pitched(h.shape[0], C, torch.int64, h.device)
+    vp = sc.pitched(val.shape[0], C, torch.int8, val.device)
+    assert hp.stride() == (-(-C // sc.PITCH) * sc.PITCH, 1) and hp.shape == h.shape
+    # whatever the pad columns hold must not reach a result
+    sc._padded(hp).copy_(torch.from_numpy(rng.integers(-2**62, 2**62, size=sc._padded(hp).shape)))
+    sc._padded(vp).fill_(1)
+    hp.copy_(h)
+    vp.copy_(val)
+    fp = sc.window_flags(vp, L, w, k - 1)
+    assert fp.stride(0) == hp.stride(0) and torch.equal(fp, flags)
+    cap = sc._slot_cap(L, w)
+    for got, want in zip(sc.window_emit(hp, fp, L, w, k - 1, cap),
+                         sc.window_emit(h, flags, L, w, k - 1, cap)):
+        assert torch.equal(got, want)
+    sel = torch.tensor([0, C - 1, 3])
+    assert torch.equal(sc.window_argmin(hp, L, w, k - 1, sel), sc.window_argmin(h, L, w, k - 1, sel))
+    with pytest.raises(ValueError, match="unit column stride"):
+        sc._check_rows(hp.t(), torch.int64, tuple(hp.t().shape), "transposed")
+
+
+@pytest.mark.parametrize("w,tile", [(10, 8), (1000, 8), (1014, 8), (1015, 4), (2000, 4),
+                                    (4000, 2), (4242, 2), (4243, 0), (5000, 0)])
+def test_emit_tile_follows_shared_memory(w, tile):
+    """The route is chosen from w alone: the widest tile whose segments,
+    argmins and flags fit in 227 KB, else the device-memory route."""
+    assert sc.emit_tile(w) == tile
+    if tile:
+        assert 27 * w * tile + 26 * 64 * tile + 8 * tile <= 232_448 and 2 * w < 1 << 15
+
+
+def test_emission_contract_at_block_seams():
+    """An argmin that stays across a block boundary emits once; a forced
+    window at a block's first row emits although its argmin did not move; an
+    invalid window emits nothing; a chunk past the capacity keeps its count."""
+    k, w = 15, 16
+    rng = np.random.default_rng(12)
+    codes = rng.integers(0, 4, size=30_000).astype(np.int8)
+    h, _, flags, C, L = _chunked_hashes(codes, k, w)
+    assert L > 4 * w
+    hu = u64.as_u64(h)
+    flags = flags.clone()
+    am = sc.window_argmin(h, L, w, k - 1)
+    seams = torch.arange(w, L, w)  # first windows of blocks 1, 2, ...
+    stays = am[seams] == am[seams - 1]
+    assert int(stays.sum()) > stays.numel() // 2  # most seams keep their argmin
+    # force one such seam window in every 3rd chunk, and knock out a window
+    # just before another seam in every 5th
+    forced = []
+    for c in range(0, C, 3):
+        rows = seams[stays[:, c]]
+        if rows.numel():
+            flags[rows[0], c] |= 2
+            forced.append((int(rows[0]), c))
+    for c in range(0, C, 5):
+        flags[2 * w - 1, c] = 0
+    cap = 6
+    pos, hsh, count = sc.window_emit(h, flags, L, w, k - 1, cap)
+    want_pos, want_hsh, want_count = _emission_lists(hu, flags.numpy(), L, w, k - 1, cap)
+    assert np.array_equal(pos.numpy(), want_pos)
+    assert np.array_equal(u64.as_u64(hsh), want_hsh)
+    assert np.array_equal(count.numpy(), want_count)
+    assert int(count.max()) > cap  # true counts past the capacity
+    big = sc.window_emit(h, flags, L, w, k - 1, L)[0].numpy()
+    for j, c in forced:  # emitted twice: once where it became the argmin, once forced
+        assert int((big[:, c] == int(am[j, c])).sum()) == 2, (j, c)
+    c = next(c for c in range(C) if c % 3 and stays[:, c].any())
+    j = int(seams[stays[:, c]][0])
+    assert int((big[:, c] == int(am[j, c])).sum()) == 1  # across the seam: once
+
+
+def _seam_records(k, w, total):
+    """Record lengths (sum with separators = total) whose second record's
+    first window is the first window of a block of w in its chunk."""
+    C, L = sc.layout(total, k, w)
+    for first in range(5_000, 5_000 + 4 * L):
+        start = first + k - 1  # stream position of record 2's first k-mer
+        if (start % L) % w == 0 and start % L != 0:
+            return [first, total - start - 2 * (k - 1) - 4_000, 4_000], start
+    raise AssertionError("no such layout")
+
+
+@pytest.mark.parametrize("k,w", [(15, 16), (32, 40)])
+def test_forced_window_on_a_block_seam_matches_pallas(k, w):
+    """A record whose first (forced) window falls on a block's first row, in
+    a joined stream: the port's stream equals the JAX package's fused sketch
+    (interpret mode) and, record by record, the NumPy oracle."""
+    total = 40_000
+    lens, start = _seam_records(k, w, total)
+    rng = np.random.default_rng(k * w)
+    records = [rng.integers(0, 4, size=ln) for ln in lens]
+    stream = _joined(records, k)
+    n = stream.shape[0]
+    assert n == total
+    C, L = sc.layout(n, k, w)
+    assert (start % L) % w == 0
+    sc.reset_counts()
+    pos, canon = _port_stream(stream, n, k, w)
+    assert sc.COUNTS["window_emit_plain"] == 1 and sc.COUNTS["exact_runs"] == 0
+    assert ((pos >= start) & (pos < start + w)).any()  # the forced window's argmin
+    jpos, jcanon = _pallas_stream(_pallas_buffer(stream, n, k, w), n, k, w, multi=True)
+    assert pos.tolist() == jpos.tolist() and canon.tolist() == jcanon.tolist()
+    hashes = derive_hash(canon, k)
+    offset = 0
+    for rec in records:
+        ref = sketch_codes(rec.astype(np.uint8), k, w)
+        sel = (pos >= offset) & (pos < offset + rec.shape[0])
+        assert (pos[sel] - offset).tolist() == ref.positions.tolist()
+        assert hashes[sel].tolist() == ref.hashes.tolist()
+        offset += rec.shape[0] + k - 1
+
+
+def test_overflowed_chunk_keeps_its_count_and_stream():
+    """Capacity 1: the chunks overflow, their counts stay true, and the
+    exact path gives the JAX package's stream."""
+    k, w = 15, 16
+    rng = np.random.default_rng(31)
+    codes = rng.integers(0, 4, size=20_000).astype(np.int8)
+    n = codes.shape[0]
+    h, _, flags, C, L = _chunked_hashes(codes, k, w)
+    _, _, count = sc.window_emit(h, flags, L, w, k - 1, 1)
+    _, _, want = _emission_lists(u64.as_u64(h), flags.numpy(), L, w, k - 1, 1)
+    assert np.array_equal(count.numpy(), want) and int((count > 1).sum()) >= C - 2
+    pos, canon = _port_stream(codes, n, k, w, slot_cap=1)
+    jpos, jcanon = _pallas_stream(_pallas_buffer(codes, n, k, w), n, k, w)
+    assert pos.tolist() == jpos.tolist() and canon.tolist() == jcanon.tolist()
