@@ -13,17 +13,22 @@ with a non-zero exit and no result line:
             card, on 2^27 seeded bases (k=32, w=1000) with N runs, a poly-C
             and an AC microsatellite stretch; outputs bit-equal; CUDA-event
             times; the window/emission kernel's shared-memory route beside
-            the device-memory route it replaced on the same inputs, that
-            route again at w=5000 (where it serves), and the
-            shared-memory route at w=10 and w=100 (short windows, empty
-            row groups) and its narrower tiles at w=2000 and w=4000
+            the device-memory route it replaced on the same inputs; the
+            same stream at w=5000 (few long chunks): the hash kernel, and
+            the shared-memory route's one-chunk tiles beside the
+            device-memory route; the device-memory route at w=10000, beyond
+            what a one-chunk tile holds; and on 2^24 bases the
+            shared-memory route at w=10 and w=100 (short windows, empty row
+            groups), w=2000 and w=4000 (tiles of 4 and 2 chunks), w=4243
+            and the longest window that fits (tiles of 1)
 4. copy     the copy kernel against the plain version and against
             ``copy_`` into a kept buffer on the profiler's 546 MB array of
             32-bit words; bit-equal; plain, kernel and ``copy_`` timed in
             turns, five rounds; GB/s
 5. sketch   sketch_records_torch on a multi-record batch with N runs against
-            the host oracle, one forced overflow through kernel 3, and a
-            batch at w=5000 through the device-memory route
+            the host oracle, one forced overflow through kernel 3, a batch
+            at w=5000 through the one-chunk tiles and one at w=10000
+            through the device-memory route
 6. prof     `python -m ntjoin_tpu_torch.kernel_prof` at 2^27 bases, every
             stage: each must print its JSON line, forwarded here; its
             launch counts are the copy kernel's main path
@@ -69,7 +74,8 @@ from ntjoin_tpu_torch.ops.nthash_np import sketch_codes
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 K, W = 32, 1000
-W_GMEM = 5000  # a window the shared-memory route cannot hold: the device-memory route's
+W_LONG = 5000  # a window that only a one-chunk tile of the shared-memory route holds
+W_GMEM = 10_000  # a window no tile holds: the device-memory route's
 # The card's published peaks, for the bounds: device memory, and float32
 # outside the tensor cores standing in for the integer rate (the data sheet
 # gives none).
@@ -263,10 +269,41 @@ def kernels() -> dict[str, dict]:
         f"bound {all_bound['bound_ms']:.3f} ms ({all_bound['bound_bytes']} bytes)")
     del h, val, flags, flat, view
 
-    # the device-memory route where it serves: a window too long for shared memory
+    # few long chunks: the hash kernel again, and the one-chunk tiles beside
+    # the device-memory route that served this window before them
+    flat, C, L, rows, off = _cell(codes, W_LONG)
+    view = sc._chunk_view(flat, L, C, rows)
+    h, val = sc.hash_chunked(flat, L, C, rows, K)
+    _compare(f"hash (w={W_LONG})", (h, val), sc.hash_chunked_ref(view, K))
+    ms = _time_ms(lambda: sc.hash_chunked(flat, L, C, rows, K), 5)
+    plain_ms = _time_ms(lambda: sc.hash_chunked_ref(view, K), 1)
+    b = bound(flat.numel() + 9 * rows * C, 12 * rows * C)
+    say(f"   hash at w={W_LONG}: C={C} chunks of L={L}, {rows} rows; bit-equal; kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_bytes']} bytes)")
+    flags = sc.window_flags(val, L, W_LONG, off)
+    cap = sc._slot_cap(L, W_LONG)
+    want = sc.window_emit_ref(h, flags, L, W_LONG, off, cap)
+    sc.reset_counts()
+    _compare(f"window_emit (w={W_LONG})", sc.window_emit(h, flags, L, W_LONG, off, cap), want)
+    if sc.emit_tile(W_LONG) != 1 or sc.COUNTS["window_emit"] != 1 or sc.COUNTS["window_emit_gmem"]:
+        fail(f"w={W_LONG} did not take the one-chunk tiles: {sc.COUNTS}")
+    _compare(f"window_emit (device-memory route, w={W_LONG})",
+             sc._window_emit_gmem(h, flags, L, W_LONG, off, cap), want)
+    del want
+    old_ms = _time_ms(lambda: sc._window_emit_gmem(h, flags, L, W_LONG, off, cap), 2)
+    ms = min(_time_ms(lambda: sc.window_emit(h, flags, L, W_LONG, off, cap), 5),
+             _time_ms(lambda: sc.window_emit(h, flags, L, W_LONG, off, cap), 5))
+    old_ms = min(old_ms, _time_ms(lambda: sc._window_emit_gmem(h, flags, L, W_LONG, off, cap), 2))
+    plain_ms = _time_ms(lambda: sc.window_emit_ref(h, flags, L, W_LONG, off, cap), 1)
+    b = _emit_bound(L, C, W_LONG, cap)
+    say(f"   window_emit at w={W_LONG}: tiles of 1 chunk {ms:.3f} ms, the device-memory route "
+        f"{old_ms:.3f} ms, same inputs, both bit-equal; plain {plain_ms:.3f} ms, bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_bytes']} bytes)")
+    del h, val, flags, flat, view
+
+    # the device-memory route where it serves: a window no tile holds
     flat, C, L, rows, off = _cell(codes, W_GMEM)
-    if sc.emit_tile(W_GMEM):
-        fail(f"w={W_GMEM} fits the shared-memory route: the device-memory route unexercised")
     h, val = sc.hash_chunked(flat, L, C, rows, K)
     flags = sc.window_flags(val, L, W_GMEM, off)
     cap = sc._slot_cap(L, W_GMEM)
@@ -274,10 +311,10 @@ def kernels() -> dict[str, dict]:
     err = _compare(f"window_emit_gmem (w={W_GMEM})",
                    sc.window_emit(h, flags, L, W_GMEM, off, cap),
                    sc.window_emit_ref(h, flags, L, W_GMEM, off, cap))
-    if sc.COUNTS["window_emit_gmem"] != 1 or sc.COUNTS["window_emit"] != 0:
+    if sc.emit_tile(W_GMEM) or sc.COUNTS["window_emit_gmem"] != 1 or sc.COUNTS["window_emit"]:
         fail(f"w={W_GMEM} did not take the device-memory route: {sc.COUNTS}")
-    ms = _time_ms(lambda: sc.window_emit(h, flags, L, W_GMEM, off, cap), 5)
-    plain_ms = _time_ms(lambda: sc.window_emit_ref(h, flags, L, W_GMEM, off, cap), 2)
+    ms = _time_ms(lambda: sc.window_emit(h, flags, L, W_GMEM, off, cap), 1)
+    plain_ms = _time_ms(lambda: sc.window_emit_ref(h, flags, L, W_GMEM, off, cap), 1)
     out["window_emit_gmem"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                "library_ms": None, **_emit_bound(L, C, W_GMEM, cap)}
     say(f"   window_emit_gmem at w={W_GMEM}: C={C} chunks of L={L}")
@@ -285,9 +322,12 @@ def kernels() -> dict[str, dict]:
 
     # the shared-memory route off w=1000: overlap-size windows and windows
     # under 191, where some of a block's row groups are empty, then its
-    # narrower tiles
+    # narrower tiles, down to the longest window a one-chunk tile holds
+    w_max = W_LONG
+    while sc.emit_tile(w_max + 1):
+        w_max += 1
     small = _seeded_codes(1 << 24, 8)
-    for w in (10, 100, 2000, 4000):
+    for w, tile in ((10, 8), (100, 8), (2000, 4), (4000, 2), (4243, 1), (w_max, 1)):
         flat, C, L, rows, off = _cell(small, w)
         h, val = sc.hash_chunked(flat, L, C, rows, K)
         flags = sc.window_flags(val, L, w, off)
@@ -295,9 +335,9 @@ def kernels() -> dict[str, dict]:
         sc.reset_counts()
         _compare(f"window_emit (w={w})", sc.window_emit(h, flags, L, w, off, cap),
                  sc.window_emit_ref(h, flags, L, w, off, cap))
-        if sc.COUNTS["window_emit"] != 1:
-            fail(f"w={w} did not take the shared-memory route: {sc.COUNTS}")
-        say(f"   window_emit at w={w}, {small.shape[0]} bases: tiles of {sc.emit_tile(w)} "
+        if sc.emit_tile(w) != tile or sc.COUNTS["window_emit"] != 1:
+            fail(f"w={w} did not take the shared-memory route in tiles of {tile}: {sc.COUNTS}")
+        say(f"   window_emit at w={w}, {small.shape[0]} bases: tiles of {tile} "
             f"chunks, bit-equal")
     for name, r in out.items():
         say(f"   {name}: bit-equal; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
@@ -367,7 +407,8 @@ def _same(got, recs, what: str, w: int = W) -> None:
 
 def sketch() -> int:
     """Phase 5: the batched sketch against the host oracle; returns the
-    launches of the device-memory window/emission route on its path."""
+    launches of the device-memory window/emission route on its path, the
+    w=10000 batch."""
     rng = np.random.default_rng(44)
     recs = _records(rng, 48 << 20)
     if not native.available():  # the numpy oracle is slow: a 2^22-base subset
@@ -400,15 +441,19 @@ def sketch() -> int:
         if acc < 1 << 24:
             long_w.append(c)
             acc += c.shape[0]
-    sc.reset_counts()
-    got = sc.sketch_records_torch(long_w, K, W_GMEM, "cuda")
-    counts = dict(sc.COUNTS)
-    _same(got, long_w, f"w={W_GMEM}", W_GMEM)
-    if counts["window_emit_gmem"] < 1 or counts["window_emit"] or counts["host_records"]:
-        fail(f"w={W_GMEM} did not go through the device-memory route: {counts}")
-    say(f"   w={W_GMEM}: {len(long_w)} records, {acc} bases, equal to the {oracle}; "
-        f"counts {json.dumps(counts)}")
-    return counts["window_emit_gmem"]
+    gmem = 0
+    for w, route, other in ((W_LONG, "window_emit", "window_emit_gmem"),
+                            (W_GMEM, "window_emit_gmem", "window_emit")):
+        sc.reset_counts()
+        got = sc.sketch_records_torch(long_w, K, w, "cuda")
+        counts = dict(sc.COUNTS)
+        _same(got, long_w, f"w={w}", w)
+        if counts[route] < 1 or counts[other] or counts["host_records"]:
+            fail(f"w={w} did not go through {route}: {counts}")
+        say(f"   w={w}: {len(long_w)} records, {acc} bases, equal to the {oracle}; "
+            f"counts {json.dumps(counts)}")
+        gmem = counts["window_emit_gmem"]
+    return gmem
 
 
 def prof() -> dict[str, int]:

@@ -93,8 +93,10 @@ __device__ void scan(const uint64_t* __restrict__ h, int64_t hC, int64_t hcol, i
 
 // -- pieces of the shared-memory tile version (window_emit.cu) -----------------
 //
-// A segment of w rows of one chunk column is cut into kGroups row groups, one
-// thread each.  A (key, arg) pair is a minimum and the row offset it sits at;
+// A segment of w rows of one chunk column is cut into G row groups, one
+// thread each (G is the kernel's template parameter, a multiple of 32: one
+// warp scans a column's groups, G / 32 neighbouring groups a lane).  A
+// (key, arg) pair is a minimum and the row offset it sits at;
 // kNoArg marks "no row".  left_wins keeps the left operand on equal keys, so
 // folding rows or groups left to right yields the leftmost minimum, and
 // (~0, kNoArg) is neutral on either side wherever the result is only used
@@ -102,7 +104,6 @@ __device__ void scan(const uint64_t* __restrict__ h, int64_t hC, int64_t hcol, i
 // own group through `<=` (suffix side).
 namespace tile {
 
-constexpr int kGroups = 64;  // row groups of a segment: two per lane of one warp
 constexpr uint32_t kNoArg = 0xFFFF;
 
 struct KeyArg {
@@ -122,45 +123,65 @@ __device__ __forceinline__ KeyArg shfl_down(KeyArg x, int d) {
           __shfl_down_sync(0xffffffffu, x.arg, d)};
 }
 
-// One warp, one column: lane l holds the minima a, b of groups 2l and 2l+1.
-// On return pre_* are the minima over all groups before 2l and before 2l+1,
-// suf_* over all groups after 2l and after 2l+1 (exclusive both ways).
-__device__ __forceinline__ void scan_groups(KeyArg a, KeyArg b, int lane, KeyArg& pre_a,
-                                            KeyArg& pre_b, KeyArg& suf_a, KeyArg& suf_b) {
+// One warp, one column: lane l holds the minima v[0..P) of groups lP .. lP+P-1.
+// On return pre[p] is the minimum over all groups before group lP+p and
+// suf[p] over all groups after it (exclusive both ways).
+template <int P>
+__device__ __forceinline__ void scan_groups(const KeyArg (&v)[P], int lane, KeyArg (&pre)[P],
+                                            KeyArg (&suf)[P]) {
   const KeyArg none{~0ull, kNoArg};
-  const KeyArg both = left_wins(a, b);
-  KeyArg x = both;
+  KeyArg all = v[0];
+#pragma unroll
+  for (int p = 1; p < P; ++p) all = left_wins(all, v[p]);
+  KeyArg x = all;
 #pragma unroll
   for (int d = 1; d < 32; d *= 2) {
     const KeyArg o = shfl_up(x, d);
     if (lane >= d) x = left_wins(o, x);
   }
-  pre_a = shfl_up(x, 1);
-  if (lane == 0) pre_a = none;
-  pre_b = left_wins(pre_a, a);
-  KeyArg y = both;
+  KeyArg run = shfl_up(x, 1);
+  if (lane == 0) run = none;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    pre[p] = run;
+    run = left_wins(run, v[p]);
+  }
+  KeyArg y = all;
 #pragma unroll
   for (int d = 1; d < 32; d *= 2) {
     const KeyArg o = shfl_down(y, d);
     if (lane + d < 32) y = left_wins(y, o);
   }
-  suf_b = shfl_down(y, 1);
-  if (lane == 31) suf_b = none;
-  suf_a = left_wins(b, suf_b);
+  run = shfl_down(y, 1);
+  if (lane == 31) run = none;
+#pragma unroll
+  for (int p = P - 1; p >= 0; --p) {
+    suf[p] = run;
+    run = left_wins(v[p], run);
+  }
 }
 
-// The same for counts: exclusive sums before groups 2l and 2l+1, and the total.
-__device__ __forceinline__ void scan_counts(int a, int b, int lane, int& pre_a, int& pre_b,
+// The same for counts: exclusive sums before each of the lane's groups, and
+// the total.
+template <int P>
+__device__ __forceinline__ void scan_counts(const int (&n)[P], int lane, int (&pre)[P],
                                             int& total) {
-  int x = a + b;
+  int mine = 0;
+#pragma unroll
+  for (int p = 0; p < P; ++p) mine += n[p];
+  int x = mine;
 #pragma unroll
   for (int d = 1; d < 32; d *= 2) {
     const int o = __shfl_up_sync(0xffffffffu, x, d);
     if (lane >= d) x += o;
   }
   total = __shfl_sync(0xffffffffu, x, 31);
-  pre_a = x - (a + b);
-  pre_b = pre_a + a;
+  int run = x - mine;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    pre[p] = run;
+    run += n[p];
+  }
 }
 
 }  // namespace tile

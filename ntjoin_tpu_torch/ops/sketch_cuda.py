@@ -15,8 +15,11 @@ Pipeline of one batch (``sketch_fused_torch``):
 4. Window/emission (kernel 2, ``csrc/window_emit.cu``): per-chunk lists of
    emitted (position, canonical hash), bounded by a capacity, plus the true
    per-chunk counts.  Two routes, chosen from w alone (``emit_tile``): tiles
-   of chunks staged in shared memory, or, where 2w rows of the narrowest tile
-   do not fit there, one thread per chunk with its scratch in device memory.
+   of 8, 4, 2 or 1 chunks staged in shared memory, the widest that fits
+   (w <= 1,014, 2,090, 4,242 and 8,362; the one-chunk tiles of the last band
+   spread a chunk's rows over a whole thread block), or, where 3w rows of one
+   chunk do not fit there, one thread per chunk with its scratch in device
+   memory.
 5. Compaction (torch): exclusive cumsum of the counts and one gather.
 6. For the chunks whose list overflowed, the exact window op (kernel 3,
    ``csrc/window.cu``) gives every window's argmin; their emission mask is
@@ -415,20 +418,25 @@ def _check_window_args(h: torch.Tensor, L: int, w: int, off: int) -> None:
         raise ValueError(f"chunk length L={L} too long for int32 window indices")
 
 
-# Shared memory a block may ask for on an H100 (227 KB), and the row groups
-# per chunk of kernel 2's shared-memory route (csrc/vanherk.cuh, kGroups).
+# Shared memory a block may ask for on an H100 (227 KB).
 _SMEM_MAX = 232_448
-_EMIT_GROUPS = 64
+
+
+def emit_groups(tile: int) -> int:
+    """Row groups (working threads) per chunk of a tile of ``tile`` chunks
+    (``kGroupsOf`` in csrc/window_emit.cu): a one-chunk tile spreads its
+    chunk's rows over four times as many threads."""
+    return 256 if tile == 1 else 64
 
 
 def emit_tile(w: int) -> int:
     """Chunks per thread block of kernel 2's shared-memory route for window
-    w: the widest of 8, 4, 2 whose three w-row segments, per-window
+    w: the widest of 8, 4, 2, 1 whose three w-row segments, per-window
     argmins and flags fit in a block's shared memory (the layout of
     ``tile_smem_bytes`` in csrc/window_emit.cu), or 0 where none does and
     the device-memory route serves."""
-    for tile in (8, 4, 2):
-        g = _EMIT_GROUPS * tile
+    for tile in (8, 4, 2, 1):
+        g = emit_groups(tile) * tile
         if 27 * w * tile + 26 * g + 8 * tile <= _SMEM_MAX:
             return tile
     return 0

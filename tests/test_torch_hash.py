@@ -61,6 +61,83 @@ def test_hash_chunked_matches_oracle(k, w):
     assert (h.numpy().view(np.uint64)[live][ok] == canon[s][ok]).all()
 
 
+_M64 = (1 << 64) - 1
+
+
+def _srol1(x):
+    x = x.astype(np.uint64)
+    one, m = np.uint64(1), np.uint64(0xFFFFFFFDFFFFFFFF)
+    return ((x << one) & m) | ((x >> np.uint64(63)) << np.uint64(33)) | ((x >> np.uint64(32)) & one)
+
+
+def _sror1(x):
+    x = x.astype(np.uint64)
+    one = np.uint64(1)
+    keep = np.uint64(_M64 ^ ((1 << 32) | (1 << 63)))
+    return (((x >> one) & keep) | ((x & one) << np.uint64(32))
+            | ((x & (one << np.uint64(33))) << np.uint64(30)))
+
+
+def _segmented_walk(x, k, seg):
+    """Kernel 1's walk, all chunks of a row at once: every segment of
+    ``seg`` rows restarts k - 1 rows early from a zero state, takes the
+    outgoing base for invalid during its first k steps, stores from its own
+    first row on; the seed terms come from the table of (out, in) pairs."""
+    rows, C = x.shape
+    t = sc.seed_tables(k).view(np.uint64)
+    zero = np.zeros(1, np.uint64)
+    t_in, t_out, t_rc_out, t_rc_in = (np.concatenate([row, zero]) for row in t)
+    pair_f = t_out[:, None] ^ t_in[None, :]  # [out, in]
+    pair_r = t_rc_out[:, None] ^ t_rc_in[None, :]
+    code = np.minimum(x.view(np.uint8), 4).astype(np.int64)
+    h = np.zeros((rows, C), np.uint64)
+    val = np.zeros((rows, C), np.int8)
+    for first in range(0, rows, seg):
+        start = max(first - (k - 1), 0)
+        f = np.zeros(C, np.uint64)
+        r = np.zeros(C, np.uint64)
+        last_bad = np.full(C, start - 1)
+        for i in range(start, min(first + seg, rows)):
+            cin = code[i]
+            cout = code[i - k] if i - start >= k else np.full(C, 4)
+            f = _srol1(f) ^ pair_f[cout, cin]
+            r = _sror1(r) ^ pair_r[cout, cin]
+            last_bad = np.where(cin == 4, i, last_bad)
+            if i >= first:
+                h[i] = f + r
+                val[i] = i - last_bad >= k
+    return h, val
+
+
+@pytest.mark.parametrize("seg", ["k-1", 7, 40, 257])  # 7: segment starts below k - 1
+@pytest.mark.parametrize("k", [15, 32])
+def test_segmented_walk_matches_plain_and_oracle(k, seg):
+    """The algebra of kernel 1's design (a thread per segment of a chunk,
+    each rebuilding the state from k - 1 warm-up rows) against the plain
+    version and the NumPy oracle: hashes and valid flags, bit for bit."""
+    seg = k - 1 if seg == "k-1" else seg
+    rng = np.random.default_rng(100 * k + seg)
+    rows, C = 600, 12
+    x = rng.integers(0, 4, size=(rows, C)).astype(np.int8)
+    s2 = 2 * seg  # first row of the third segment
+    x[s2 - 2 : s2 + 3, 1] = 4            # an N run straddling a segment start
+    x[max(s2 - k + 3, 0) : max(s2 - k + 5, 2), 2] = 4  # one inside a segment's warm-up
+    x[0:3, 3] = 4                        # at the chunk's start
+    x[s2 - 1, 4] = -1                    # any code >= 4 (as a byte) is invalid
+    x[s2, 5] = 4                         # a segment's first own row
+    x[:, 6] = 4
+    x[rng.integers(0, rows, size=40), rng.integers(7, C, size=40)] = 4
+    h, val = _segmented_walk(x, k, seg)
+    h_ref, val_ref = sc.hash_chunked_ref(torch.from_numpy(x), k)
+    assert np.array_equal(h, h_ref.numpy().view(np.uint64))
+    assert np.array_equal(val, val_ref.numpy())
+    for c in range(C):
+        canon, valid = canonical_hashes(np.minimum(x[:, c].view(np.uint8), 4), k)
+        assert np.array_equal(val[k - 1 :, c].astype(bool), valid)
+        assert (val[: k - 1, c] == 0).all()
+        assert np.array_equal(h[k - 1 :, c][valid], canon[valid])
+
+
 def test_wrapper_refuses_other_devices():
     flat = torch.zeros(64, dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="no kernel or plain version"):

@@ -272,13 +272,21 @@ def test_pitched_layout_matches_unpitched():
 
 
 @pytest.mark.parametrize("w,tile", [(10, 8), (1000, 8), (1014, 8), (1015, 4), (2000, 4),
-                                    (4000, 2), (4242, 2), (4243, 0), (5000, 0)])
+                                    (4000, 2), (4242, 2), (4243, 1), (5000, 1), (8362, 1),
+                                    (8363, 0), (10000, 0)])
 def test_emit_tile_follows_shared_memory(w, tile):
     """The route is chosen from w alone: the widest tile whose segments,
-    argmins and flags fit in 227 KB, else the device-memory route."""
+    argmins and flags fit in 227 KB (a one-chunk tile, with its 256 row
+    groups, from w = 4,243 up to 8,362), else the device-memory route."""
     assert sc.emit_tile(w) == tile
+
+    def fits(t):
+        return 27 * w * t + 26 * sc.emit_groups(t) * t + 8 * t <= 232_448
+
+    assert [t for t in (8, 4, 2, 1) if fits(t)][:1] == ([tile] if tile else [])
     if tile:
-        assert 27 * w * tile + 26 * 64 * tile + 8 * tile <= 232_448 and 2 * w < 1 << 15
+        assert 2 * w < 1 << 15  # 16-bit argmin offsets inside two segments
+        assert sc.emit_groups(tile) % 32 == 0  # whole lanes of the scanning warp
 
 
 def test_emission_contract_at_block_seams():
