@@ -13,14 +13,20 @@ with a non-zero exit and no result line:
             card, on 2^27 seeded bases (k=32, w=1000) with N runs, a poly-C
             and an AC microsatellite stretch; outputs bit-equal; CUDA-event
             times; the window/emission kernel's shared-memory route beside
-            the device-memory route it replaced on the same inputs; the
-            same stream at w=5000 (few long chunks): the hash kernel, and
-            the shared-memory route's one-chunk tiles beside the
-            device-memory route; the device-memory route at w=10000, beyond
-            what a one-chunk tile holds; and on 2^24 bases the
-            shared-memory route at w=10 and w=100 (short windows, empty row
-            groups), w=2000 and w=4000 (tiles of 4 and 2 chunks), w=4243
-            and the longest window that fits (tiles of 1)
+            the device-memory route on the same inputs; the exact window
+            kernel over all chunks and over the overflowed ones, beside
+            the card's time for one empty launch; the same stream at w=5000
+            (few long chunks): the hash kernel, the one-chunk tiles beside
+            the device-memory route, the exact kernel; at w=10000, beyond
+            what a one-chunk tile holds, the device-memory route and the
+            exact kernel; the flag kernel at all three; and on 2^24 bases
+            the flag kernel and the shared-memory route at w=10 and w=100
+            (short windows, empty row groups), w=2000 and w=4000 (tiles of
+            4 and 2 chunks), w=4243 and the longest window that fits (tiles
+            of 1), the exact kernel at w=10 and 4243, and the device-memory
+            route at the first window it serves and at w=20000 (with the
+            exact kernel), its time beside the one-chunk tiles' one window
+            below
 4. copy     the copy kernel against the plain version and against
             ``copy_`` into a kept buffer on the profiler's 546 MB array of
             32-bit words; bit-equal; plain, kernel and ``copy_`` timed in
@@ -28,7 +34,8 @@ with a non-zero exit and no result line:
 5. sketch   sketch_records_torch on a multi-record batch with N runs against
             the host oracle, one forced overflow through kernel 3, a batch
             at w=5000 through the one-chunk tiles and one at w=10000
-            through the device-memory route
+            through the device-memory route; every device batch through the
+            flag kernel
 6. prof     `python -m ntjoin_tpu_torch.kernel_prof` at 2^27 bases, every
             stage: each must print its JSON line, forwarded here; its
             launch counts are the copy kernel's main path
@@ -85,10 +92,12 @@ SOURCES = {
     "hash": ("ntjoin_tpu_torch/csrc/hash.cu", "ntjoin_tpu/ops/sketch_pallas.py:107"),
     "window_emit": ("ntjoin_tpu_torch/csrc/window_emit.cu",
                     "ntjoin_tpu/ops/sketch_pallas.py:540"),
-    "window_emit_gmem": ("ntjoin_tpu_torch/csrc/window_emit.cu",
+    "window_emit_gmem": ("ntjoin_tpu_torch/csrc/window_emit_gmem.cu",
                          "ntjoin_tpu/ops/sketch_pallas.py:540"),
     "window": ("ntjoin_tpu_torch/csrc/window.cu", "ntjoin_tpu/ops/sketch_pallas.py:305"),
     "copy": ("ntjoin_tpu_torch/csrc/copy.cu", "scripts/kernel_prof.py:190 and :380"),
+    "flags": ("ntjoin_tpu_torch/csrc/flags.cu",
+              "ntjoin_tpu/ops/sketch_pallas.py:1299 (XLA code there, no TPU kernel)"),
 }
 
 
@@ -151,6 +160,23 @@ def _time_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def _time_queued_ms(fn, reps: int) -> float:
+    """Device time of a launch too short for the host to keep up with: the
+    launches are queued behind a kernel that spins for some milliseconds, so
+    that they run back to back."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def _compare(name: str, got, want) -> float:
     """Bit-equality of each output pair; returns the max abs difference."""
     err = 0.0
@@ -195,6 +221,51 @@ def _emit_bound(L: int, C: int, w: int, cap: int) -> dict:
                  3 * (L + w - 1) * C + L * C)
 
 
+def _flags(val: torch.Tensor, L: int, w: int, off: int, what: str) -> tuple:
+    """The flag kernel's flags, held bit-equal to the plain version's over
+    the (L, C) view (the pad columns' content is free); and the error."""
+    flags = sc.window_flags(val, L, w, off)
+    if flags.stride(0) % sc.PITCH or flags.data_ptr() % 16 or flags.stride(0) < val.shape[1]:
+        fail(f"flags ({what}) are not pitched: stride {flags.stride(0)}")
+    return flags, _compare(f"flags ({what})", (flags,), (sc.window_flags_ref(val, L, w, off),))
+
+
+def _flag_times(val: torch.Tensor, L: int, w: int, off: int) -> dict:
+    """Kernel and plain times of the flag op; its bound: the k-mer flags its
+    windows cover in, the window flags out."""
+    flags = sc.window_flags(val, L, w, off)
+    return {"ms": _time_ms(lambda: sc.window_flags(val, L, w, off), 10),
+            "plain_ms": _time_ms(lambda: sc.window_flags_ref(val, L, w, off), 2),
+            "library_ms": None,
+            **bound((L + w - 1 + L) * flags.stride(0), 3 * (L + w - 1) * val.shape[1])}
+
+
+def _argmin_bound(L: int, n_sel: int, w: int) -> dict:
+    """Exact window op: the hashes of the listed chunks' windows and the list
+    in, every window's argmin out; three 64-bit compares per element."""
+    return bound(8 * (L + w - 1) * n_sel + 8 * n_sel + 8 * L * n_sel, 3 * (L + w - 1) * n_sel)
+
+
+def _exact_all(h: torch.Tensor, L: int, w: int, off: int, reps: int = 3) -> str:
+    """Kernel 3 over every chunk against the plain version; a line of times."""
+    C = h.shape[1]
+    _compare(f"window (all chunks, w={w})", (sc.window_argmin(h, L, w, off),),
+             (sc.window_argmin_ref(h, L, w, off),))
+    ms = _time_ms(lambda: sc.window_argmin(h, L, w, off), reps)
+    plain_ms = _time_ms(lambda: sc.window_argmin_ref(h, L, w, off), 1)
+    b = _argmin_bound(L, C, w)
+    tile, threads = sc.argmin_launch(C, w, h.device)
+    return (f"   window over all {C} chunks at w={w}: bit-equal; {-(-C // tile)} thread blocks of "
+            f"{threads} threads ({tile} chunks each, {-(-L // w)} blocks of windows in turn); "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
+            f"({b['bound_bytes']} bytes)")
+
+
+def _gmem_launch(C: int, w: int) -> str:
+    tile, threads = sc.gmem_launch(C, w, torch.device("cuda"))
+    return f"{-(-C // tile)} thread blocks of {threads} threads ({tile} chunks each)"
+
+
 def _seeded_codes(n: int, n_ns: int) -> np.ndarray:
     rng = np.random.default_rng(2027)
     codes = rng.integers(0, 4, size=n, dtype=np.int8)
@@ -223,7 +294,8 @@ def kernels() -> dict[str, dict]:
                    **bound(flat.numel() + 9 * rows * C, 12 * rows * C)}
     say(f"   hash rows pitched to {h.stride(0)} columns")
 
-    flags = sc.window_flags(val, L, W, off)
+    flags, err = _flags(val, L, W, off, f"w={W}")
+    out["flags"] = {"max_abs_err": err, **_flag_times(val, L, W, off)}
     cap = sc._slot_cap(L, W)
     tile = sc.emit_tile(W)
     if not tile:
@@ -245,28 +317,29 @@ def kernels() -> dict[str, dict]:
     out["window_emit"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "library_ms": None, **_emit_bound(L, C, W, cap)}
     say(f"   window_emit: shared-memory route (tiles of {tile} chunks) {ms:.3f} ms, the "
-        f"device-memory route it replaced {old_ms:.3f} ms, same inputs, both bit-equal")
+        f"device-memory route {old_ms:.3f} ms ({_gmem_launch(C, W)}), same inputs, both "
+        f"bit-equal")
     say(f"   emission capacity {cap}/chunk; {over.numel()} chunks overflowed "
         f"(max count {n_max})")
     if over.numel() == 0:
         fail("the repeat stretches overflowed no chunk: kernel 3 unexercised")
 
-    err = _compare("window (all chunks)", (sc.window_argmin(h, L, W, off),),
-                   (sc.window_argmin_ref(h, L, W, off),))
-    all_ms = _time_ms(lambda: sc.window_argmin(h, L, W, off), 3)
-    all_plain_ms = _time_ms(lambda: sc.window_argmin_ref(h, L, W, off), 2)
-    err = max(err, _compare("window (overflowed chunks)",
-                            (sc.window_argmin(h, L, W, off, over),),
-                            (sc.window_argmin_ref(h, L, W, off, over),)))
-    ms = _time_ms(lambda: sc.window_argmin(h, L, W, off, over), 5)
+    say(_exact_all(h, L, W, off))
+    err = _compare("window (overflowed chunks)", (sc.window_argmin(h, L, W, off, over),),
+                   (sc.window_argmin_ref(h, L, W, off, over),))
+    # a launch this short is timed queued behind a spinning kernel, beside
+    # the card's time for an empty launch: the floor under its bound
+    ms = _time_queued_ms(lambda: sc.window_argmin(h, L, W, off, over), 50)
+    unqueued_ms = _time_ms(lambda: sc.window_argmin(h, L, W, off, over), 50)
     plain_ms = _time_ms(lambda: sc.window_argmin_ref(h, L, W, off, over), 5)
+    stream = torch.cuda.current_stream().cuda_stream
+    floor_ms = _time_queued_ms(lambda: sc._lib().nj_noop(stream), 200)
     n_over = over.numel()
     out["window"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                     **bound(8 * (L + W - 1) * n_over + 8 * n_over + 8 * L * n_over,
-                             3 * (L + W - 1) * n_over)}
-    all_bound = bound(8 * (L + W - 1) * C + 8 * C + 8 * L * C, 3 * (L + W - 1) * C)
-    say(f"   window over all {C} chunks: kernel {all_ms:.3f} ms, plain {all_plain_ms:.3f} ms, "
-        f"bound {all_bound['bound_ms']:.3f} ms ({all_bound['bound_bytes']} bytes)")
+                     "launch_floor_ms": floor_ms, **_argmin_bound(L, n_over, W)}
+    say(f"   window over the {n_over} overflowed chunks: {n_over * -(-L // W)} thread blocks of "
+        f"{sc.split_threads(W, 1)} threads; {ms:.4f} ms on the card ({unqueued_ms:.4f} ms "
+        f"from a host that waits for nothing); one empty launch {floor_ms:.4f} ms")
     del h, val, flags, flat, view
 
     # few long chunks: the hash kernel again, and the one-chunk tiles beside
@@ -281,7 +354,10 @@ def kernels() -> dict[str, dict]:
     say(f"   hash at w={W_LONG}: C={C} chunks of L={L}, {rows} rows; bit-equal; kernel "
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
         f"({b['bound_bytes']} bytes)")
-    flags = sc.window_flags(val, L, W_LONG, off)
+    flags, _ = _flags(val, L, W_LONG, off, f"w={W_LONG}")
+    t = _flag_times(val, L, W_LONG, off)
+    say(f"   flags at w={W_LONG}: bit-equal; kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} "
+        f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_bytes']} bytes)")
     cap = sc._slot_cap(L, W_LONG)
     want = sc.window_emit_ref(h, flags, L, W_LONG, off, cap)
     sc.reset_counts()
@@ -291,21 +367,26 @@ def kernels() -> dict[str, dict]:
     _compare(f"window_emit (device-memory route, w={W_LONG})",
              sc._window_emit_gmem(h, flags, L, W_LONG, off, cap), want)
     del want
-    old_ms = _time_ms(lambda: sc._window_emit_gmem(h, flags, L, W_LONG, off, cap), 2)
+    old_ms = _time_ms(lambda: sc._window_emit_gmem(h, flags, L, W_LONG, off, cap), 5)
     ms = min(_time_ms(lambda: sc.window_emit(h, flags, L, W_LONG, off, cap), 5),
              _time_ms(lambda: sc.window_emit(h, flags, L, W_LONG, off, cap), 5))
-    old_ms = min(old_ms, _time_ms(lambda: sc._window_emit_gmem(h, flags, L, W_LONG, off, cap), 2))
+    old_ms = min(old_ms, _time_ms(lambda: sc._window_emit_gmem(h, flags, L, W_LONG, off, cap), 5))
     plain_ms = _time_ms(lambda: sc.window_emit_ref(h, flags, L, W_LONG, off, cap), 1)
     b = _emit_bound(L, C, W_LONG, cap)
     say(f"   window_emit at w={W_LONG}: tiles of 1 chunk {ms:.3f} ms, the device-memory route "
-        f"{old_ms:.3f} ms, same inputs, both bit-equal; plain {plain_ms:.3f} ms, bound "
-        f"{b['bound_ms']:.4f} ms ({b['bound_bytes']} bytes)")
-    del h, val, flags, flat, view
+        f"{old_ms:.3f} ms ({_gmem_launch(C, W_LONG)}), same inputs, both bit-equal; plain "
+        f"{plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_bytes']} bytes)")
+    del flags, val
+    say(_exact_all(h, L, W_LONG, off))
+    del h, flat, view
 
     # the device-memory route where it serves: a window no tile holds
     flat, C, L, rows, off = _cell(codes, W_GMEM)
     h, val = sc.hash_chunked(flat, L, C, rows, K)
-    flags = sc.window_flags(val, L, W_GMEM, off)
+    flags, _ = _flags(val, L, W_GMEM, off, f"w={W_GMEM}")
+    t = _flag_times(val, L, W_GMEM, off)
+    say(f"   flags at w={W_GMEM}: bit-equal; kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} "
+        f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_bytes']} bytes)")
     cap = sc._slot_cap(L, W_GMEM)
     sc.reset_counts()
     err = _compare(f"window_emit_gmem (w={W_GMEM})",
@@ -313,12 +394,15 @@ def kernels() -> dict[str, dict]:
                    sc.window_emit_ref(h, flags, L, W_GMEM, off, cap))
     if sc.emit_tile(W_GMEM) or sc.COUNTS["window_emit_gmem"] != 1 or sc.COUNTS["window_emit"]:
         fail(f"w={W_GMEM} did not take the device-memory route: {sc.COUNTS}")
-    ms = _time_ms(lambda: sc.window_emit(h, flags, L, W_GMEM, off, cap), 1)
+    ms = min(_time_ms(lambda: sc.window_emit(h, flags, L, W_GMEM, off, cap), 5),
+             _time_ms(lambda: sc.window_emit(h, flags, L, W_GMEM, off, cap), 5))
     plain_ms = _time_ms(lambda: sc.window_emit_ref(h, flags, L, W_GMEM, off, cap), 1)
     out["window_emit_gmem"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                "library_ms": None, **_emit_bound(L, C, W_GMEM, cap)}
-    say(f"   window_emit_gmem at w={W_GMEM}: C={C} chunks of L={L}")
-    del h, val, flags, flat
+    say(f"   window_emit_gmem at w={W_GMEM}: C={C} chunks of L={L}, {_gmem_launch(C, W_GMEM)}")
+    del flags, val
+    say(_exact_all(h, L, W_GMEM, off))
+    del h, flat
 
     # the shared-memory route off w=1000: overlap-size windows and windows
     # under 191, where some of a block's row groups are empty, then its
@@ -327,18 +411,43 @@ def kernels() -> dict[str, dict]:
     while sc.emit_tile(w_max + 1):
         w_max += 1
     small = _seeded_codes(1 << 24, 8)
+    tile_ms = 0.0
     for w, tile in ((10, 8), (100, 8), (2000, 4), (4000, 2), (4243, 1), (w_max, 1)):
         flat, C, L, rows, off = _cell(small, w)
         h, val = sc.hash_chunked(flat, L, C, rows, K)
-        flags = sc.window_flags(val, L, w, off)
+        flags, _ = _flags(val, L, w, off, f"w={w}, {small.shape[0]} bases")
         cap = sc._slot_cap(L, w)
         sc.reset_counts()
         _compare(f"window_emit (w={w})", sc.window_emit(h, flags, L, w, off, cap),
                  sc.window_emit_ref(h, flags, L, w, off, cap))
         if sc.emit_tile(w) != tile or sc.COUNTS["window_emit"] != 1:
             fail(f"w={w} did not take the shared-memory route in tiles of {tile}: {sc.COUNTS}")
-        say(f"   window_emit at w={w}, {small.shape[0]} bases: tiles of {tile} "
+        say(f"   flags and window_emit at w={w}, {small.shape[0]} bases: tiles of {tile} "
             f"chunks, bit-equal")
+        if w in (10, 4243):  # a short and an odd window
+            say(_exact_all(h, L, w, off))
+        if w == w_max:
+            tile_ms = _time_ms(lambda: sc.window_emit(h, flags, L, w, off, cap), 5)
+    # the device-memory route from the first window it serves, and the exact
+    # kernel at a window above what two segments of shared memory would hold
+    for w in (w_max + 1, 20_000):
+        flat, C, L, rows, off = _cell(small, w)
+        h, val = sc.hash_chunked(flat, L, C, rows, K)
+        flags, _ = _flags(val, L, w, off, f"w={w}, {small.shape[0]} bases")
+        cap = sc._slot_cap(L, w)
+        sc.reset_counts()
+        _compare(f"window_emit_gmem (w={w})", sc.window_emit(h, flags, L, w, off, cap),
+                 sc.window_emit_ref(h, flags, L, w, off, cap))
+        if sc.emit_tile(w) or sc.COUNTS["window_emit_gmem"] != 1 or sc.COUNTS["window_emit"]:
+            fail(f"w={w} did not take the device-memory route: {sc.COUNTS}")
+        ms = _time_ms(lambda: sc.window_emit(h, flags, L, w, off, cap), 5)
+        say(f"   flags and window_emit_gmem at w={w}, {small.shape[0]} bases: C={C} chunks of "
+            f"L={L}, {_gmem_launch(C, w)}, bit-equal; {ms:.3f} ms"
+            + (f" beside {tile_ms:.3f} ms for the one-chunk tiles at w={w_max}"
+               if w == w_max + 1 else ""))
+        if w == 20_000:
+            say(_exact_all(h, L, w, off))
+    del h, val, flags, flat
     for name, r in out.items():
         say(f"   {name}: bit-equal; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_bytes']} bytes)")
@@ -405,6 +514,12 @@ def _same(got, recs, what: str, w: int = W) -> None:
             fail(f"{what}: record {i} ({c.shape[0]} bases) differs from the oracle")
 
 
+def _flags_counted(counts: dict) -> None:
+    """Every device batch launches the hash kernel and the flag kernel once."""
+    if counts["flags"] < 1 or counts["flags"] != counts["hash"] or counts["flags_plain"]:
+        fail(f"a device batch went round the flag kernel: {counts}")
+
+
 def sketch() -> int:
     """Phase 5: the batched sketch against the host oracle; returns the
     launches of the device-memory window/emission route on its path, the
@@ -429,12 +544,14 @@ def sketch() -> int:
         f"{oracle}; counts {json.dumps(sc.COUNTS)}")
     if sc.COUNTS["host_records"]:
         fail("a record took the host sketcher")
+    _flags_counted(sc.COUNTS)
     small = recs[-12:]
     sc.reset_counts()
     got = sc.sketch_records_torch(small, K, W, "cuda", slot_cap=2)
     _same(got, small, "forced overflow")
     if sc.COUNTS["exact_runs"] < 1 or sc.COUNTS["window"] < 1:
         fail(f"slot_cap=2 did not take the exact path: {sc.COUNTS}")
+    _flags_counted(sc.COUNTS)
     say(f"   forced overflow (slot_cap=2): exact through kernel 3, counts {json.dumps(sc.COUNTS)}")
     long_w, acc = [], 0
     for c in recs:
@@ -450,6 +567,7 @@ def sketch() -> int:
         _same(got, long_w, f"w={w}", w)
         if counts[route] < 1 or counts[other] or counts["host_records"]:
             fail(f"w={w} did not go through {route}: {counts}")
+        _flags_counted(counts)
         say(f"   w={w}: {len(long_w)} records, {acc} bases, equal to the {oracle}; "
             f"counts {json.dumps(counts)}")
         gmem = counts["window_emit_gmem"]
@@ -752,7 +870,8 @@ def e2e(sizes: list[int], n_contigs: int) -> dict[str, int]:
         index = _counts_line(p_out, "index_counts")
         say(f"   card run's counts: {json.dumps(counts)}")
         say(f"   card run's index counts: {json.dumps(index)}")
-        if _counts_line(r_out, "sketch_counts")["hash"] or any(
+        host_counts = _counts_line(r_out, "sketch_counts")
+        if any(host_counts[name] for name in sc.KERNELS) or any(
                 v["launches"] for v in _counts_line(r_out, "index_counts").values()
                 if isinstance(v, dict)):
             fail("the host path launched a kernel or a torch graph op: no independent oracle")
@@ -776,7 +895,9 @@ def main() -> int:
     run = e2e([24_000_000, 22_000_000, 20_000_000, 18_000_000, 16_000_000], 2000)
     if run["host_records"] != 0:
         fail(f"{run['host_records']} records took the host sketcher")
-    counts.update({name: run[name] for name in ("hash", "window_emit", "window")})
+    if run["flags"] != run["hash"]:
+        fail(f"the e2e run's batches went round the flag kernel: {run}")
+    counts.update({name: run[name] for name in ("hash", "flags", "window_emit", "window")})
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "ntjoin_tpu"
               or m.startswith("ntjoin_tpu.")]
@@ -788,7 +909,8 @@ def main() -> int:
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": counts[name],
-         **{key: times[name][key] for key in JSON_KEYS}}
+         **{key: times[name][key] for key in JSON_KEYS + ("bound_bytes",)},
+         **{key: times[name][key] for key in ("launch_floor_ms",) if key in times[name]}}
         for name in sc.KERNELS
     ]}))
     say(smi)

@@ -22,7 +22,7 @@
 //
 // What bounds it on an H100: memory (8 B of hash and 1 B of flags read per
 // window; emissions are ~2 per w windows).  Two routes, chosen by the wrapper
-// from w alone:
+// from w alone, this file's and window_emit_gmem.cu's:
 //
 // nj_window_emit (shared memory).  A thread block owns a tile of T
 // neighbouring chunks and walks their blocks of w windows in order.  The rows
@@ -55,10 +55,10 @@
 // of the segment ahead: this block's emission pass waits for the flags, the
 // segment only has to land by the next block.
 // On an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), 2^27 bases: tiles of 8 at
-// w=1000 1.35 ms against 6.1 ms for the device-memory route and a bound of
+// w=1000 1.35 ms against 6.1 ms for one thread per chunk and a bound of
 // 0.44 ms; staging and arithmetic take about as long as each other and
-// overlap only in part.  Tiles of 1 at w=5000 2.7 ms against 26.4 ms for the
-// device-memory route, bound 0.44 ms: arithmetic alone 1.4 ms, staging the
+// overlap only in part.  Tiles of 1 at w=5000 2.7 ms against 26.4 ms for one
+// thread per chunk, bound 0.44 ms: arithmetic alone 1.4 ms, staging the
 // hashes alone 1.4 ms, staging with the flags 2.4 ms.  What costs is the
 // number of sectors asked for, not the bytes: the flags, one useful byte a
 // sector, take a millisecond however they are fetched (plain loads, 4-byte
@@ -66,55 +66,13 @@
 // are slower at equal bytes (tiles of 4 at w=2000 1.9 ms, of 2 at w=4000 3.3
 // ms).
 //
-// nj_window_emit_gmem (device memory).  One thread per chunk scans its
-// chunk with the per-thread passes of vanherk.cuh, suffix minima in a
-// device-memory scratch.  Any w; serves the w above 8,362, whose segments no
-// tile holds: 52 ms at w=10000 on the same stream (3,345 threads).
+// nj_window_emit_gmem (device memory, window_emit_gmem.cu).  Any w; serves
+// the w above 8,362, whose segments no tile holds.
 #include <type_traits>
 
 #include "vanherk.cuh"
 
 namespace {
-
-// -- device-memory route ----------------------------------------------------------
-
-struct EmitSink {
-  const int8_t* __restrict__ flags;
-  int64_t f_pitch, C, chunk, L, cap;
-  int64_t* __restrict__ pos;
-  uint64_t* __restrict__ hsh;
-  int64_t count;
-  int32_t prev;
-
-  __device__ void operator()(int64_t j, uint64_t key, int32_t s) {
-    const int8_t f = flags[j * f_pitch + chunk];
-    if ((f & 1) && ((f & 2) || s != prev)) {
-      if (count < cap) {
-        pos[count * C + chunk] = chunk * L + s;
-        hsh[count * C + chunk] = key;
-      }
-      ++count;
-    }
-    prev = s;
-  }
-};
-
-__global__ void window_emit_gmem_kernel(const uint64_t* __restrict__ h, int64_t h_pitch,
-                                        const int8_t* __restrict__ flags, int64_t f_pitch,
-                                        int64_t L, int64_t C, int w, int64_t off, int64_t cap,
-                                        uint64_t* __restrict__ sk, int32_t* __restrict__ sp,
-                                        int64_t* __restrict__ pos, uint64_t* __restrict__ hsh,
-                                        int64_t* __restrict__ count) {
-  const int64_t chunk = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (chunk >= C) return;
-  EmitSink sink{flags, f_pitch, C, chunk, L, cap, pos, hsh, 0, -1};
-  vanherk::scan(h, h_pitch, chunk, L, w, off, sk, sp, C, chunk, sink);
-  for (int64_t i = sink.count < cap ? sink.count : cap; i < cap; ++i) {
-    pos[i * C + chunk] = -1;
-    hsh[i * C + chunk] = 0;
-  }
-  count[chunk] = sink.count;
-}
 
 // -- shared-memory route ----------------------------------------------------------
 
@@ -499,16 +457,4 @@ extern "C" int nj_window_emit(const void* h, int64_t h_pitch, const void* flags,
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-extern "C" int nj_window_emit_gmem(const void* h, int64_t h_pitch, const void* flags,
-                                   int64_t f_pitch, int64_t L, int64_t C, int w, int64_t off,
-                                   int64_t cap, void* sk, void* sp, void* pos, void* hsh,
-                                   void* count, void* stream) {
-  const int threads = 64;
-  const int64_t blocks = (C + threads - 1) / threads;
-  window_emit_gmem_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)h, h_pitch, (const int8_t*)flags, f_pitch, L, C, w, off, cap,
-      (uint64_t*)sk, (int32_t*)sp, (int64_t*)pos, (uint64_t*)hsh, (int64_t*)count);
-  return (int)cudaGetLastError();
 }

@@ -13,8 +13,9 @@ Stages (default: all, in this order):
   chunk (the counterpart of the original's ``slope`` stage).
 * ``membw``: the copy kernel, its plain version, an elementwise xor and a
   sum over the same array, in GB/s of the bytes each moves.
-* ``ablate``: in-context marginals of hash, window/emission and compaction,
-  and the exact path over the overflowed chunks when it ran.
+* ``ablate``: in-context marginals of hash, flags, window/emission and
+  compaction (the flag op timed by itself, the others by difference), and
+  the exact path over the overflowed chunks when it ran.
 * ``decomp``: the kernels one at a time, window plus compaction, and a
   repeat-dense input (poly-C blocks every KP_SIZE/64) with the exact path
   over the chunks it overflows.
@@ -118,6 +119,15 @@ def stage_link(buf: torch.Tensor) -> dict:
     }
 
 
+def marginals(t_hash: float, t_flags: float, t_win: float, t_full: float) -> dict:
+    """The ``ablate`` stage's split of the fused call: the times of the call
+    cut after the hash, after the window/emission op and whole, and of the
+    flag op by itself, as each part's marginal."""
+    return {"through_hash_ms": t_hash, "through_window_ms": t_win, "full_ms": t_full,
+            "hash_ms": t_hash, "flags_ms": t_flags, "window_ms": t_win - t_hash - t_flags,
+            "compaction_ms": t_full - t_win}
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -191,9 +201,10 @@ def main(argv: list[str] | None = None) -> int:
             t_win = events_ms(lambda: fused("window"))
             runs0 = sc.COUNTS["exact_runs"]
             t_full = events_ms(fused)
-            out = {"through_hash_ms": t_hash, "through_window_ms": t_win, "full_ms": t_full,
-                   "hash_ms": t_hash, "window_ms": t_win - t_hash,
-                   "compaction_ms": t_full - t_win,
+            val = fused("hash")[1]
+            t_flags = events_ms(lambda: sc.window_flags(val, L, W, off))
+            del val
+            out = {**marginals(t_hash, t_flags, t_win, t_full),
                    "exact_ran": sc.COUNTS["exact_runs"] > runs0}
             if out["exact_ran"]:
                 h, _ = fused("hash")
@@ -207,6 +218,7 @@ def main(argv: list[str] | None = None) -> int:
             h, val = sc.hash_chunked(flat, L, C, rows, K)
             out["hash_ms"] = events_ms(lambda: sc.hash_chunked(flat, L, C, rows, K))
             flags = sc.window_flags(val, L, W, off)
+            out["flags_ms"] = events_ms(lambda: sc.window_flags(val, L, W, off))
             del val
             out["window_emit_ms"] = events_ms(lambda: sc.window_emit(h, flags, L, W, off, cap))
 

@@ -1,4 +1,4 @@
-"""Minimizer sketch on an NVIDIA GPU: three CUDA kernels and their plain
+"""Minimizer sketch on an NVIDIA GPU: four CUDA kernels and their plain
 PyTorch versions.  Port of ``ntjoin_tpu/ops/sketch_pallas.py``.
 
 Pipeline of one batch (``sketch_fused_torch``):
@@ -10,19 +10,24 @@ Pipeline of one batch (``sketch_fused_torch``):
    windows whole (the halo of w + k - 2 rows overlaps the next chunk).
 2. Hash (kernel 1, ``csrc/hash.cu``): end-indexed canonical ntHash2 and a
    k-mer valid flag, (rows, C).
-3. Flags (torch): a window is valid when all w k-mers are; the first valid
-   window after an invalid one is forced to emit (a record's first window).
+3. Flags (``csrc/flags.cu``): a window is valid when all w k-mers are; the
+   first valid window after an invalid one is forced to emit (a record's
+   first window).  A running "last invalid row" down each column, the rows
+   split over the threads of a block.
 4. Window/emission (kernel 2, ``csrc/window_emit.cu``): per-chunk lists of
    emitted (position, canonical hash), bounded by a capacity, plus the true
    per-chunk counts.  Two routes, chosen from w alone (``emit_tile``): tiles
    of 8, 4, 2 or 1 chunks staged in shared memory, the widest that fits
    (w <= 1,014, 2,090, 4,242 and 8,362; the one-chunk tiles of the last band
    spread a chunk's rows over a whole thread block), or, where 3w rows of one
-   chunk do not fit there, one thread per chunk with its scratch in device
-   memory.
+   chunk do not fit there, the device-memory route
+   (``csrc/window_emit_gmem.cu``): a thread block per tile of up to 8 chunks
+   whose threads split each segment's rows and read them from device memory,
+   L2 serving the repeats.
 5. Compaction (torch): exclusive cumsum of the counts and one gather.
 6. For the chunks whose list overflowed, the exact window op (kernel 3,
-   ``csrc/window.cu``) gives every window's argmin; their emission mask is
+   ``csrc/window.cu``: a thread block per chunk and block of w windows, the
+   same split of the rows) gives every window's argmin; their emission mask is
    compacted with ``torch.nonzero`` and merged into the stream.
 
 Emissions come out in stream order; a chunk's first window repeats the
@@ -60,10 +65,10 @@ LIB_PATH = os.path.join(_PKG, "_build", "libntjoin_cuda.so")
 # Kernel launches by op, calls of each op's plain version, records the host
 # sketcher took, and runs of the exact window path.  Plain counters so that
 # a run can show which code served it; ``reset_counts`` zeroes them.  The
-# sketch runs ``hash``, one of the two window/emission routes and
+# sketch runs ``hash``, ``flags``, one of the two window/emission routes and
 # ``window``; the copy (``ops/membw.py``) serves the profiler.
-KERNELS = ("hash", "window_emit", "window_emit_gmem", "window", "copy")
-_OPS = ("hash", "window_emit", "window", "copy")  # each has one plain version
+KERNELS = ("hash", "flags", "window_emit", "window_emit_gmem", "window", "copy")
+_OPS = ("hash", "flags", "window_emit", "window", "copy")  # each has one plain version
 COUNTS: dict[str, int] = {}
 # Host-clock seconds of ``sketch_records_torch`` by stage, accumulated over
 # calls (the counterpart of ``sketch_pallas._STAGES``): plan (N
@@ -190,9 +195,12 @@ def _lib():
         sigs = {
             "nj_hash": [p, i64, i64, i64, i32, p, p, i64, p, i64, p],
             "nj_window_emit": [p, i64, p, i64, i64, i64, i32, i64, i64, i32, p, p, p, p],
-            "nj_window_emit_gmem": [p, i64, p, i64, i64, i64, i32, i64, i64, p, p, p, p, p, p],
-            "nj_window": [p, i64, i64, i32, i64, p, i64, p, p, p, p],
+            "nj_window_emit_gmem": [p, i64, p, i64, i64, i64, i32, i64, i64, i32, i32, p, p,
+                                    p, p],
+            "nj_window": [p, i64, i64, i32, i64, p, i64, i32, i32, p, p],
+            "nj_flags": [p, i64, i64, i64, i32, i64, i32, p, i64, p],
             "nj_copy": [p, p, i64, p],
+            "nj_noop": [p],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -406,9 +414,10 @@ def window_emit_ref(h: torch.Tensor, flags: torch.Tensor, L: int, w: int, off: i
     return pos, hsh, count
 
 
-def _scratch(w: int, n: int, dev: torch.device):
-    return (torch.empty((w, n), dtype=torch.int64, device=dev),
-            torch.empty((w, n), dtype=torch.int32, device=dev))
+# Longest window of the window ops: the kernels that read their rows from
+# device memory keep 24 bytes of shared memory for every 4,096 rows of a
+# one-chunk tile's segment (``sub_bytes`` in csrc/vanherk.cuh).
+MAX_WINDOW = 1 << 25
 
 
 def _check_window_args(h: torch.Tensor, L: int, w: int, off: int) -> None:
@@ -416,6 +425,8 @@ def _check_window_args(h: torch.Tensor, L: int, w: int, off: int) -> None:
         raise ValueError(f"hash rows {tuple(h.shape)} < off + L + w - 1 = {off + L + w - 1}")
     if L + w >= 1 << 31:
         raise ValueError(f"chunk length L={L} too long for int32 window indices")
+    if not 1 <= w <= MAX_WINDOW:
+        raise ValueError(f"window w={w} outside [1, {MAX_WINDOW}]")
 
 
 # Shared memory a block may ask for on an H100 (227 KB).
@@ -440,6 +451,75 @@ def emit_tile(w: int) -> int:
         if 27 * w * tile + 26 * g + 8 * tile <= _SMEM_MAX:
             return tile
     return 0
+
+
+# The kernels that read their rows from device memory (kernel 3 and kernel
+# 2's device-memory route; csrc/vanherk.cuh, namespace split): a thread holds
+# ``SPLIT_ROWS`` rows of a segment in registers, a thread block has at most
+# ``SPLIT_MAX_THREADS`` threads, and a tile is a power of two of chunks up
+# to 32.
+SPLIT_ROWS = 8
+SPLIT_MAX_THREADS = 512
+# Kernel 2's device-memory route walks a chunk's blocks of windows in order,
+# pass after pass: smaller thread blocks, more of them an SM, overlap one
+# block's scans with another's loads (measured: PERF.md).  Threads a block
+# for a tile of several chunks, and for a tile of one.
+_GMEM_THREADS = (128, 256)
+# Dynamic shared memory a split kernel may take for its sub-tile minima (24
+# bytes a pass and chunk), beside its static arrays.
+_SPLIT_SUB_MAX = 200_000
+
+
+def split_threads(w: int, tile: int, most: int = SPLIT_MAX_THREADS) -> int:
+    """Threads of a block that splits the w rows of a segment of ``tile``
+    chunks: one per ``SPLIT_ROWS`` rows and chunk, in whole warps, at most
+    ``most`` (longer segments take several passes)."""
+    return min(most, -(-(-(-w // SPLIT_ROWS) * tile) // 32) * 32)
+
+
+def _split_launch(w: int, n_chunks: int, tiles: tuple, fill: int,
+                  most: tuple[int, int]) -> tuple[int, int]:
+    """(tile, threads) of a split kernel over ``n_chunks`` neighbouring
+    chunks: the widest of ``tiles`` that leaves at least ``fill`` thread
+    blocks and whose passes' minima fit in shared memory, with at most
+    ``most[0]`` threads; else one chunk a thread block with at most
+    ``most[1]``, or as many as it takes to fit."""
+    for tile in tiles:
+        threads = split_threads(w, tile, most[0])
+        passes = -(-w // (threads // tile * SPLIT_ROWS))
+        if -(-n_chunks // tile) >= fill and 24 * passes * tile <= _SPLIT_SUB_MAX:
+            return tile, threads
+    fits = 24 * -(-w // (most[1] * SPLIT_ROWS)) <= _SPLIT_SUB_MAX
+    return 1, split_threads(w, 1, most[1] if fits else SPLIT_MAX_THREADS)
+
+
+def gmem_launch(C: int, w: int, dev: torch.device) -> tuple[int, int]:
+    """(chunks, threads) per thread block of kernel 2's device-memory route:
+    the hashes of neighbouring chunks share a row's sectors, so the widest
+    of 8, 4, 2, 1 that still gives every SM two thread blocks."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _split_launch(w, C, (8, 4, 2), 2 * sms, _GMEM_THREADS)
+
+
+def argmin_launch(C: int, w: int, dev: torch.device) -> tuple[int, int]:
+    """(chunks, threads) per thread block of kernel 3 over all chunks: 32
+    neighbouring chunks make a row's reads and writes whole 256-byte runs, so
+    the widest of 32, 16, 8, 4 that still gives every other SM a thread
+    block."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    most = (SPLIT_MAX_THREADS, SPLIT_MAX_THREADS)
+    return _split_launch(w, C, (32, 16, 8, 4), sms // 2, most)
+
+
+def flag_band(C: int, L: int, w: int, dev: torch.device) -> int:
+    """Elements (rows) of a band of the flag kernel, whose thread blocks own
+    128 columns and one band each: as many bands as give every SM two thread
+    blocks, but none shorter than w, because a band reads the w rows
+    before it again."""
+    want = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+    n_el = L + w - 1
+    bands = max(1, min(-(-want // -(-C // 128)), n_el // w))
+    return -(-n_el // bands)
 
 
 def _emit_outputs(cap: int, C: int, dev: torch.device):
@@ -468,12 +548,12 @@ def _window_emit_tile(h, flags, L: int, w: int, off: int, cap: int, tile: int):
 def _window_emit_gmem(h, flags, L: int, w: int, off: int, cap: int):
     """Kernel 2's device-memory route on checked CUDA tensors."""
     C = h.shape[1]
-    sk, sp = _scratch(w, C, h.device)
+    tile, threads = gmem_launch(C, w, h.device)
     pos, hsh, count = _emit_outputs(cap, C, h.device)
     with torch.cuda.device(h.device):
         err = _lib().nj_window_emit_gmem(
             h.data_ptr(), h.stride(0), flags.data_ptr(), flags.stride(0), L, C, w, off, cap,
-            sk.data_ptr(), sp.data_ptr(), pos.data_ptr(), hsh.data_ptr(), count.data_ptr(),
+            tile, threads, pos.data_ptr(), hsh.data_ptr(), count.data_ptr(),
             _stream(h),
         )
     _launched(err, "window_emit_gmem")
@@ -503,24 +583,29 @@ def window_emit(h: torch.Tensor, flags: torch.Tensor, L: int, w: int, off: int,
 def window_argmin(h: torch.Tensor, L: int, w: int, off: int,
                   chunks: torch.Tensor | None = None) -> torch.Tensor:
     """Op 3 over the listed chunks (all by default): kernel 3 for CUDA
-    tensors, ``window_argmin_ref`` for CPU ones."""
+    tensors, ``window_argmin_ref`` for CPU ones.  A list is taken as
+    scattered: one chunk, and one of its blocks of w windows, a thread block.
+    All chunks go up to 32 to a thread block, which reads and writes whole
+    runs of a row and walks the chunks' blocks of windows in order."""
     _check_window_args(h, L, w, off)
     if not _on_cuda(h):
         return window_argmin_ref(h, L, w, off, chunks)
-    chunks = _all_chunks(h) if chunks is None else chunks
-    n_sel = chunks.shape[0]
     _check_rows(h, torch.int64, tuple(h.shape), "window_argmin h")
-    _check(chunks, torch.int64, (n_sel,), "window_argmin chunks")
-    if chunks.device != h.device:
-        raise ValueError(f"chunks on {chunks.device}, hashes on {h.device}")
     dev = h.device
+    if chunks is None:
+        n_sel, listed = h.shape[1], None
+        tile, threads = argmin_launch(n_sel, w, dev)
+    else:
+        n_sel, listed, tile, threads = chunks.shape[0], chunks.data_ptr(), 1, split_threads(w, 1)
+        _check(chunks, torch.int64, (n_sel,), "window_argmin chunks")
+        if chunks.device != dev:
+            raise ValueError(f"chunks on {chunks.device}, hashes on {dev}")
     am = torch.empty((L, n_sel), dtype=torch.int64, device=dev)
     if n_sel == 0:
         return am
-    sk, sp = _scratch(w, n_sel * -(-L // w), dev)  # one column per (chunk, block)
     with torch.cuda.device(dev):
-        err = _lib().nj_window(h.data_ptr(), L, h.stride(0), w, off, chunks.data_ptr(), n_sel,
-                               sk.data_ptr(), sp.data_ptr(), am.data_ptr(), _stream(h))
+        err = _lib().nj_window(h.data_ptr(), L, h.stride(0), w, off, listed, n_sel, tile,
+                               threads, am.data_ptr(), _stream(h))
     _launched(err, "window")
     return am
 
@@ -539,11 +624,13 @@ def _padded(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def window_flags(val: torch.Tensor, L: int, w: int, off: int) -> torch.Tensor:
-    """(L, C) int8: bit0 = all w k-mers of the window valid, bit1 = first
-    valid window after an invalid one (a record's first window).  For a
-    ``pitched`` val the pass runs over the whole buffer, so the flags come out
-    pitched alike."""
+def window_flags_ref(val: torch.Tensor, L: int, w: int, off: int) -> torch.Tensor:
+    """Plain version of the flag kernel.  (L, C) int8: bit0 = all w k-mers of
+    the window valid, bit1 = first valid window after an invalid one (a
+    record's first window); val (rows, C) int8 holds 1 for a valid k-mer, the
+    window's first at row off + j.  For a ``pitched`` val the pass runs over
+    the whole buffer, so the flags come out pitched alike."""
+    COUNTS["flags_plain"] += 1
     n_cols = val.shape[1]
     val = _padded(val)
     C = val.shape[1]
@@ -554,6 +641,30 @@ def window_flags(val: torch.Tensor, L: int, w: int, off: int) -> torch.Tensor:
     first = valid.clone()
     first[1:] &= ~valid[:-1]
     return (valid.to(torch.int8) | (first.to(torch.int8) << 1))[:, :n_cols]
+
+
+def window_flags(val: torch.Tensor, L: int, w: int, off: int) -> torch.Tensor:
+    """The window flags of ``window_flags_ref``: the flag kernel for a CUDA
+    tensor (the flags come out ``pitched``), the plain version for a CPU
+    one."""
+    if val.dim() != 2 or val.shape[0] < off + L + w - 1:
+        raise ValueError(f"valid rows {tuple(val.shape)} < off + L + w - 1 = {off + L + w - 1}")
+    if w < 1 or L + w >= 1 << 31:
+        raise ValueError(f"window w={w}, chunk length L={L}: want w >= 1 and L + w < 2^31")
+    if not _on_cuda(val):
+        return window_flags_ref(val, L, w, off)
+    C = val.shape[1]
+    _check_rows(val, torch.int8, tuple(val.shape), "window_flags val")
+    if val.stride(0) % PITCH or val.data_ptr() % 4:
+        raise ValueError(f"window_flags: val rows need a pitch that is a multiple of {PITCH} "
+                         f"columns (see pitched), got stride {val.stride(0)}")
+    flags = pitched(L, C, torch.int8, val.device)
+    with torch.cuda.device(val.device):
+        err = _lib().nj_flags(val.data_ptr(), val.stride(0), L, C, w, off,
+                              flag_band(C, L, w, val.device), flags.data_ptr(), flags.stride(0),
+                              _stream(val))
+    _launched(err, "flags")
+    return flags
 
 
 def _compact_lists(pos: torch.Tensor, hsh: torch.Tensor, count: torch.Tensor, total: int):
@@ -603,7 +714,7 @@ def sketch_fused_torch(flat: torch.Tensor, n: int, k: int, w: int,
         h, val = hash_chunked(flat, L, C, rows, k)
     if stop_after == "hash":
         return h, val
-    flags = window_flags(val, L, w, off)
+    flags = (window_flags_ref if plain else window_flags)(val, L, w, off)
     del val
     cap = _slot_cap(L, w) if slot_cap is None else slot_cap
     spos, shsh, count = (window_emit_ref if plain else window_emit)(h, flags, L, w, off, cap)

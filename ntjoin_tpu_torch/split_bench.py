@@ -1,0 +1,231 @@
+"""Times of the flag kernel and of the two kernels that read their rows from
+device memory (kernel 3 and kernel 2's device-memory route) on one CUDA GPU,
+for tuning them and for comparing two trees in one call.
+
+    python -m ntjoin_tpu_torch.split_bench times [--quick] [--unchecked]
+    python -m ntjoin_tpu_torch.split_bench sweep
+    python -m ntjoin_tpu_torch.split_bench variant DIR [noscan] [noload] [nostore]
+                                                   [rows=N] [threads=N]
+
+``times`` holds each op bit-equal to its plain version and prints one JSON
+line per (window, stream) with CUDA-event milliseconds: 2^24 bases at w=10,
+100, 1000, 4243, 8362, 8363 and 20000, and (without ``--quick``) 2^27 bases
+at w=1000, 5000 and 10000; ``exact_over_ms`` is kernel 3 over the chunks whose
+emission lists overflowed (``--unchecked``: no comparison, for a tree
+with parts compiled out).  It uses only what the package has offered since
+its first version, so a copy of this file in another tree's package times
+that tree (run it from that tree's root: parent, change, change, parent in
+one call).  ``sweep`` times both kernels for every (chunks, threads) a thread
+block at 2^27 bases.  ``variant`` copies the
+package into DIR with parts of the split kernels compiled out (the scans,
+the loads, kernel 3's stores: times then say what each part costs, outputs
+are wrong) or with other rows a thread and threads a block; run ``times
+--unchecked`` or ``sweep`` from DIR.  Exits 2 without a CUDA device.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import sys
+
+import numpy as np
+import torch
+
+from ntjoin_tpu_torch.ops import sketch_cuda as sc
+
+K = 32
+
+
+def _codes(n: int, n_ns: int) -> np.ndarray:
+    """Seeded bases with N runs, a poly-C and an AC stretch."""
+    rng = np.random.default_rng(2027)
+    codes = rng.integers(0, 4, size=n, dtype=np.int8)
+    for s in rng.integers(0, n - 6000, size=n_ns):
+        codes[s : s + int(rng.integers(10, 5000))] = 4
+    codes[n // 3 : n // 3 + 5000] = 1
+    s = 2 * n // 3
+    codes[s : s + 5000 : 2] = 0
+    codes[s + 1 : s + 5001 : 2] = 1
+    return codes
+
+
+def _cell(codes: np.ndarray, w: int):
+    """Hashes, valid flags and layout of the stream at window w, on the card."""
+    n = codes.shape[0]
+    C, L = sc.layout(n, K, w)
+    flat = np.full(C * L + w + K - 2, 4, dtype=np.int8)
+    flat[:n] = codes
+    h, val = sc.hash_chunked(torch.from_numpy(flat).cuda(), L, C, L + w + K - 2, K)
+    return h, val, C, L, K - 1
+
+
+def _ms(fn, reps: int = 5) -> float:
+    """Best of two CUDA-event means over ``reps`` back-to-back calls."""
+    best = float("inf")
+    for _ in range(2):
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        best = min(best, a.elapsed_time(b) / reps)
+    return best
+
+
+_CHECKED = True
+
+
+def _same(name: str, got, want) -> None:
+    for g, r in zip(got, want) if _CHECKED else ():
+        if not torch.equal(g, r):
+            raise SystemExit(f"split_bench: {name} differs from its plain version")
+
+
+def times(quick: bool) -> None:
+    flags_ref = getattr(sc, "window_flags_ref", sc.window_flags)
+    cells = [(1 << 24, 8, w) for w in (10, 100, 1000, 4243, 8362, 8363, 20000)]
+    if not quick:
+        cells += [(1 << 27, 64, w) for w in (1000, 5000, 10000)]
+    streams: dict[int, np.ndarray] = {}
+    for n, n_ns, w in cells:
+        if n not in streams:
+            streams[n] = _codes(n, n_ns)
+        h, val, C, L, off = _cell(streams[n], w)
+        flags = sc.window_flags(val, L, w, off)
+        _same(f"flags w={w}", (flags,), (flags_ref(val, L, w, off),))
+        cap = sc._slot_cap(L, w)
+        want = sc.window_emit_ref(h, flags, L, w, off, cap)
+        _same(f"device-memory route w={w}", sc._window_emit_gmem(h, flags, L, w, off, cap), want)
+        over = torch.nonzero(want[2] > cap).flatten()
+        del want
+        _same(f"exact w={w}", (sc.window_argmin(h, L, w, off),),
+              (sc.window_argmin_ref(h, L, w, off),))
+        out = {"bases": n, "w": w, "chunks": C, "chunk_len": L,
+               "flags_ms": _ms(lambda: sc.window_flags(val, L, w, off)),
+               "gmem_ms": _ms(lambda: sc._window_emit_gmem(h, flags, L, w, off, cap), 3),
+               "exact_all_ms": _ms(lambda: sc.window_argmin(h, L, w, off), 3)}
+        if sc.emit_tile(w):
+            out["tile_ms"] = _ms(lambda: sc.window_emit(h, flags, L, w, off, cap), 3)
+        if over.numel():
+            _same(f"exact over the overflowed chunks, w={w}",
+                  (sc.window_argmin(h, L, w, off, over),),
+                  (sc.window_argmin_ref(h, L, w, off, over),))
+            out["overflowed"] = int(over.numel())
+            out["exact_over_ms"] = _ms(lambda: sc.window_argmin(h, L, w, off, over), 20)
+        print(json.dumps(out), flush=True)
+
+
+def sweep() -> None:
+    codes = _codes(1 << 27, 64)
+    for w in (1000, 5000, 10000):
+        h, val, C, L, off = _cell(codes, w)
+        flags = sc.window_flags(val, L, w, off)
+        cap = sc._slot_cap(L, w)
+        want_e = sc.window_emit_ref(h, flags, L, w, off, cap)
+        want_a = sc.window_argmin_ref(h, L, w, off)
+        for tile in (32, 16, 8, 4, 2, 1):
+            for most in (128, 256, 512):
+                launch = (tile, sc.split_threads(w, tile, most))
+                passes = -(-w // (launch[1] // tile * sc.SPLIT_ROWS))
+                if passes > 1 and 24 * passes * tile > sc._SPLIT_SUB_MAX:
+                    continue  # the passes' minima would not fit in shared memory
+                sc.gmem_launch = sc.argmin_launch = lambda *a, _l=launch: _l
+                out = {"w": w, "chunks_a_block": tile, "threads": launch[1]}
+                if tile <= 8:
+                    _same("device-memory route", sc._window_emit_gmem(h, flags, L, w, off, cap),
+                          want_e)
+                    out["gmem_ms"] = _ms(lambda: sc._window_emit_gmem(h, flags, L, w, off, cap), 3)
+                if tile != 2:
+                    _same("exact", (sc.window_argmin(h, L, w, off),), (want_a,))
+                    out["exact_all_ms"] = _ms(lambda: sc.window_argmin(h, L, w, off), 3)
+                print(json.dumps(out), flush=True)
+        del want_e, want_a
+
+
+# What ``variant`` rewrites, by file under the package: (find, replace).
+_PARTS = {
+    "noscan": ("csrc/vanherk.cuh", [
+        ("  KeyArg x = mine;\n",
+         "  if (total) *total = none;\n  return none;\n  KeyArg x = mine;\n"),
+        ("  KeyArg x = mine, y = mine;\n",
+         "  pre = suf = none;\n  return;\n  KeyArg x = mine, y = mine;\n"),
+    ]),
+    "noload": ("csrc/vanherk.cuh", [
+        ("? hc[e * h_pitch] : ~0ull;", "? (uint64_t)(e + hcol) * 0x9E3779B97F4A7C15ull : ~0ull;"),
+    ]),
+    "nostore": ("csrc/window.cu", [
+        ("      if (chunk >= 0 && t0 + r < w && j < L) am",
+         "      if (arg[r] != 0xFFFFFFF0u) continue;\n"
+         "      if (chunk >= 0 && t0 + r < w && j < L) am"),
+    ]),
+}
+
+
+def variant(dst: str, what: list[str]) -> None:
+    pkg = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(dst, "ntjoin_tpu_torch")
+    shutil.copytree(pkg, out, ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    edits: dict[str, list[tuple[str, str]]] = {}
+    for word in what:
+        if word in _PARTS:
+            path, pairs = _PARTS[word]
+            edits.setdefault(path, []).extend(pairs)
+        elif word.startswith("rows="):
+            n = int(word[5:])
+            edits.setdefault("csrc/vanherk.cuh", []).append(
+                (f"constexpr int kRows = {sc.SPLIT_ROWS};", f"constexpr int kRows = {n};"))
+            edits.setdefault("ops/sketch_cuda.py", []).append(
+                (f"\nSPLIT_ROWS = {sc.SPLIT_ROWS}\n", f"\nSPLIT_ROWS = {n}\n"))
+        elif word.startswith("threads="):
+            n = int(word[8:])
+            edits.setdefault("csrc/vanherk.cuh", []).append(
+                (f"constexpr int kMaxThreads = {sc.SPLIT_MAX_THREADS};",
+                 f"constexpr int kMaxThreads = {n};"))
+            edits.setdefault("ops/sketch_cuda.py", []).append(
+                (f"\nSPLIT_MAX_THREADS = {sc.SPLIT_MAX_THREADS}\n", f"\nSPLIT_MAX_THREADS = {n}\n"))
+        else:
+            raise SystemExit(f"split_bench: unknown part {word!r}")
+    for path, pairs in edits.items():
+        with open(os.path.join(out, path), encoding="utf-8") as fh:
+            text = fh.read()
+        for find, replace in pairs:
+            if find not in text:
+                raise SystemExit(f"split_bench: {path} no longer holds {find!r}")
+            text = text.replace(find, replace)
+        with open(os.path.join(out, path), "w", encoding="utf-8") as fh:
+            fh.write(text)
+    print(f"{out}: {' '.join(what) or 'unchanged'}")
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv or argv[0] not in ("times", "sweep", "variant"):
+        print(__doc__, file=sys.stderr)
+        return 2
+    if argv[0] == "variant":
+        if len(argv) < 2:
+            print("split_bench: variant needs a directory", file=sys.stderr)
+            return 2
+        variant(argv[1], argv[2:])
+        return 0
+    if not torch.cuda.is_available():
+        print("split_bench: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "build_s": sc.build()[0]}),
+          flush=True)
+    if argv[0] == "times":
+        global _CHECKED
+        _CHECKED = "--unchecked" not in argv[1:]
+        times("--quick" in argv[1:])
+    else:
+        sweep()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

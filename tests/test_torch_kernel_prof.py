@@ -64,6 +64,29 @@ def test_copy_words_plain_version(dtype, shape):
     assert torch.equal(membw.copy_words_ref(x), x)
 
 
+def test_ablate_marginals_add_up():
+    """The ``ablate`` stage's split: the flag op has a time of its own, and
+    the parts sum to the whole call."""
+    m = kernel_prof.marginals(t_hash=0.8, t_flags=0.25, t_win=2.5, t_full=3.25)
+    assert m["hash_ms"] == 0.8 and m["flags_ms"] == 0.25
+    assert m["window_ms"] == pytest.approx(1.45) and m["compaction_ms"] == pytest.approx(0.75)
+    parts = m["hash_ms"] + m["flags_ms"] + m["window_ms"] + m["compaction_ms"]
+    assert parts == pytest.approx(m["full_ms"])
+
+
+@pytest.mark.parametrize("plain", [False, True])
+def test_fused_call_counts_the_flag_op(plain):
+    """On the CPU, and with ``plain=True`` anywhere, the fused call takes the
+    flag op's plain version, once a call."""
+    codes, flat, C, L = _stream(15, 10, 1 << 12)
+    sc.reset_counts()
+    sc.sketch_fused_torch(flat, codes.shape[0], 15, 10, plain=plain)
+    assert sc.COUNTS["flags_plain"] == 1 and sc.COUNTS["flags"] == 0
+    assert sc.COUNTS["hash_plain"] == 1 and sc.COUNTS["window_emit_plain"] == 1
+    assert set(sc.KERNELS) >= {"flags", "window", "window_emit_gmem"}
+    assert all(sc.COUNTS[name] == 0 for name in sc.KERNELS)
+
+
 def test_copy_rows_at_the_bench_size():
     """The copy array of the original profiler at 2^27 bases: 66,688 rows
     of 2048 words, 546 MB."""
@@ -90,3 +113,29 @@ def test_profiler_refuses_without_cuda():
     assert res.returncode != 0
     assert "no CUDA device" in res.stderr
     assert res.stdout == ""
+
+
+def test_split_bench_variants_still_match_the_sources(tmp_path):
+    """``split_bench variant`` rewrites the kernels' sources by text: every
+    pattern must still be found, and the copy must hold the edits."""
+    from ntjoin_tpu_torch import split_bench
+
+    split_bench.variant(str(tmp_path), ["noscan", "noload", "nostore", "rows=4", "threads=1024"])
+    pkg = tmp_path / "ntjoin_tpu_torch"
+    header = (pkg / "csrc" / "vanherk.cuh").read_text()
+    assert "constexpr int kRows = 4;" in header and "constexpr int kMaxThreads = 1024;" in header
+    assert header.count("return none;") == 1 and "pre = suf = none;" in header
+    assert "0x9E3779B97F4A7C15ull" in header
+    assert "0xFFFFFFF0u" in (pkg / "csrc" / "window.cu").read_text()
+    wrapper = (pkg / "ops" / "sketch_cuda.py").read_text()
+    assert "\nSPLIT_ROWS = 4\n" in wrapper and "\nSPLIT_MAX_THREADS = 1024\n" in wrapper
+    assert not (pkg / "_build").exists()
+    with pytest.raises(SystemExit, match="unknown part"):
+        split_bench.variant(str(tmp_path / "other"), ["nothing"])
+
+
+def test_split_bench_refuses_without_cuda():
+    res = subprocess.run([sys.executable, "-m", "ntjoin_tpu_torch.split_bench", "times"],
+                         cwd=REPO, capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES=""))
+    assert res.returncode == 2 and "no CUDA device" in res.stderr and res.stdout == ""

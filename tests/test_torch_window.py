@@ -384,3 +384,398 @@ def test_overflowed_chunk_keeps_its_count_and_stream():
     pos, canon = _port_stream(codes, n, k, w, slot_cap=1)
     jpos, jcanon = _pallas_stream(_pallas_buffer(codes, n, k, w), n, k, w)
     assert pos.tolist() == jpos.tolist() and canon.tolist() == jcanon.tolist()
+
+
+# -- the row-group split of the kernels that read their rows from device memory ----
+#
+# Kernel 3 and kernel 2's device-memory route (csrc/vanherk.cuh, namespace
+# split) cut the w rows of a segment into passes of G row groups of R rows:
+# group minima, exclusive carries from the groups after (segment b) and before
+# (segment b + 1), a first pass for the minima of the later passes, suffix
+# minima in place, combine with the running prefix minimum.  The card is the
+# only place where they run, so their arithmetic is emulated here in NumPy,
+# step for step, and held to the plain versions.
+
+_NONE = (2**64 - 1, 0xFFFFFFFF)
+
+
+def _left_wins(a, b):
+    return b if b[0] < a[0] else a
+
+
+def _split_windows(col, L, w, G, R, walk=False):
+    """``split::block_windows`` for one column of hashes (Python ints, one per
+    element): yields (b, t0, keys, args) for every block of windows, pass and
+    row group, in the kernel's order; args are offsets from element b*w.
+    With ``walk`` the blocks of windows hand their second segment on, as a
+    thread block that takes them in order does: the passes' minima where a
+    segment takes several passes, the rows and the scan of their group
+    minima where it takes one."""
+    n_el = L + w - 1
+    Q = G * R
+    S = -(-w // Q)
+
+    def load(seg0, t):
+        return col[seg0 + t] if t < w and seg0 + t < n_el else _NONE[0]
+
+    def fold(keys, a0):
+        m = _NONE
+        for r, key in enumerate(keys):
+            m = _left_wins(m, (key, a0 + r))
+        return m
+
+    def after(mins):  # minimum over the entries after each
+        out, run = [_NONE] * len(mins), _NONE
+        for i in reversed(range(len(mins))):
+            out[i] = run
+            run = _left_wins(mins[i], run)
+        return out
+
+    def before_(mins):  # minimum over the entries before each, and over all
+        out, run = [_NONE] * len(mins), _NONE
+        for i, m in enumerate(mins):
+            out[i] = run
+            run = _left_wins(run, m)
+        return out, run
+
+    def as_segment_b(m):  # an argmin noted in segment b + 1, seen from the next block
+        return (m[0], m[1] if m[1] == _NONE[1] else m[1] - w)
+
+    def rows_to_windows(kb, kn, suf, pre, t0):
+        keys, args = [0] * R, [0] * R
+        for r in reversed(range(R)):
+            if kb[r] <= suf[0]:
+                suf = (kb[r], t0 + r)
+            keys[r], args[r] = suf
+        for r in range(R):
+            if pre[0] < keys[r]:
+                keys[r], args[r] = pre
+            if kn[r] < pre[0]:
+                pre = (kn[r], w + t0 + r)
+        return keys, args
+
+    warm, noted, handed = False, [_NONE] * S, None
+    for b in range(-(-L // w)):
+        base = b * w
+        if S == 1 and walk:
+            t0s = [g * R for g in range(G)]
+            if warm:
+                kb, suf = handed
+            else:
+                kb = [[load(base, t0 + r) for r in range(R)] for t0 in t0s]
+                suf = after([fold(kb[g], t0s[g]) for g in range(G)])
+            kn = [[load(base + w, t0 + r) for r in range(R)] for t0 in t0s]
+            mins = [fold(kn[g], w + t0s[g]) for g in range(G)]
+            pre, _ = before_(mins)
+            handed, warm = (kn, [as_segment_b(m) for m in after(mins)]), True
+            for g, t0 in enumerate(t0s):
+                yield (b, t0, *rows_to_windows(kb[g], kn[g], suf[g], pre[g], t0))
+            continue
+        if S > 1 and not warm:
+            noted = [fold([load(base, s * Q + t) for t in range(Q)], s * Q) for s in range(S)]
+        later = after(noted)  # minimum over the later passes of segment b
+        before = _NONE  # minimum over the earlier passes of segment b + 1
+        for s in range(S):
+            t0s = [s * Q + g * R for g in range(G)]
+            kb = [[load(base, t0 + r) for r in range(R)] for t0 in t0s]
+            kn = [[load(base + w, t0 + r) for r in range(R)] for t0 in t0s]
+            suf = after([fold(kb[g], t0s[g]) for g in range(G)])
+            pre, total = before_([fold(kn[g], w + t0s[g]) for g in range(G)])
+            for g, t0 in enumerate(t0s):
+                yield (b, t0, *rows_to_windows(kb[g], kn[g], _left_wins(suf[g], later[s]),
+                                               _left_wins(before, pre[g]), t0))
+            before = _left_wins(before, total)
+            if walk:
+                noted[s] = as_segment_b(total)
+        warm = walk
+
+
+def _split_argmins(hu, L, w, off, G, R, walk=False):
+    """Kernel 3 over all chunks by the split: (L, C) stream positions."""
+    C = hu.shape[1]
+    am = np.full((L, C), -1, np.int64)
+    for c in range(C):
+        col = [int(v) for v in hu[off : off + L + w - 1, c]]
+        for b, t0, _, args in _split_windows(col, L, w, G, R, walk):
+            for r, a in enumerate(args):
+                if t0 + r < w and b * w + t0 + r < L:
+                    am[b * w + t0 + r, c] = c * L + b * w + a
+    return am
+
+
+def _split_emissions(hu, flags, L, w, off, cap, G, R, walk=True):
+    """Kernel 2's device-memory route by the split: `prev` of a group's first
+    window is the last window of the group before, of the pass before, or of
+    the block before, as ``EmitSink`` takes it."""
+    C = hu.shape[1]
+    pos = np.full((cap, C), -1, np.int64)
+    hsh = np.zeros((cap, C), np.uint64)
+    count = np.zeros(C, np.int64)
+    for c in range(C):
+        col = [int(v) for v in hu[off : off + L + w - 1, c]]
+        running, prev_s, last_s = 0, -1, None
+        for b, t0, keys, args in _split_windows(col, L, w, G, R, walk):
+            base = b * w
+            prev = prev_s if t0 % (G * R) == 0 else last_s
+            new_prev_s = None
+            for r in range(R):
+                t = t0 + r
+                s = base + args[r]
+                live = t < w and base + t < L
+                f = int(flags[base + t, c]) if live else 0
+                if live and f & 1 and (f & 2 or s != prev):
+                    if running < cap:
+                        pos[running, c] = c * L + s
+                        hsh[running, c] = keys[r]
+                    running += 1
+                prev = s
+                if t == w - 1 or (t < w and r == R - 1 and t0 // R % G == G - 1):
+                    new_prev_s = s
+            last_s = base + args[R - 1]
+            if new_prev_s is not None:
+                prev_s = new_prev_s
+        count[c] = running
+    return pos, hsh, count
+
+
+def _repeat_stream(n, seed):
+    """Seeded bases with N runs, a homopolymer and an alternating stretch."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=n).astype(np.int8)
+    codes[n // 7 : n // 7 + 9] = 4
+    codes[n // 2 : n // 2 + 3] = 4
+    codes[n // 3 : n // 3 + 400] = 1
+    codes[2 * n // 3 : 2 * n // 3 + 400 : 2] = 0
+    codes[2 * n // 3 + 1 : 2 * n // 3 + 401 : 2] = 1
+    return codes
+
+
+# (w, G, R): one pass and several, more groups than rows, one row a group,
+# a last pass that the segment fills only in part
+_SPLITS = [(3, 4, 2), (16, 1, 4), (16, 2, 8), (16, 64, 8), (40, 3, 4), (40, 5, 8), (40, 7, 1),
+           (200, 8, 8), (200, 4, 4), (333, 16, 2)]
+
+
+@pytest.mark.parametrize("walk", [False, True])
+@pytest.mark.parametrize("w,G,R", _SPLITS)
+def test_split_argmins_match_plain(w, G, R, walk):
+    """The row-group split against ``window_argmin_ref``, on few-valued
+    hashes (ties everywhere, top bit set) and on a stream's real hashes; a
+    block of windows by itself (a list of chunks) and the blocks in turn, each
+    handing its second segment on (all chunks)."""
+    rng = np.random.default_rng(w * G + R)
+    L = 3 * w + 5  # a short last block of windows
+    h = _ALPHABET[rng.integers(0, _ALPHABET.shape[0], size=(L + w - 1 + 2, 5))]
+    h[:, 3] = 2**64 - 1  # the value that stands for "no row"
+    want = sc.window_argmin_ref(torch.from_numpy(h.view(np.int64)), L, w, 2)
+    assert np.array_equal(_split_argmins(h, L, w, 2, G, R, walk), want.numpy())
+    if w <= 40:
+        k = 15
+        hh, _, _, C, L = _chunked_hashes(_repeat_stream(6_000, w), k, w)
+        sel = torch.arange(0, C, max(1, C // 6))
+        want = sc.window_argmin_ref(hh, L, w, k - 1, sel).numpy()
+        got = _split_argmins(u64.as_u64(hh)[:, sel.numpy()], L, w, k - 1, G, R, walk)
+        assert np.array_equal(got + (sel.numpy() - np.arange(sel.shape[0])) * L, want)
+
+
+@pytest.mark.parametrize("w,G,R", _SPLITS)
+def test_split_emissions_match_plain(w, G, R):
+    """The split with the emission step against ``window_emit_ref``: lists,
+    padding and true counts, with forced and invalid windows on block and
+    pass seams and a capacity that some chunks exceed."""
+    rng = np.random.default_rng(7 * w + G + R)
+    L = 3 * w + 5
+    C = 6
+    h = _ALPHABET[rng.integers(0, _ALPHABET.shape[0], size=(L + w - 1, C))]
+    h[:, 4] = rng.integers(0, 2**63, size=h.shape[0], dtype=np.uint64)  # few ties: few emissions
+    flags = np.ones((L, C), np.int8)
+    flags[rng.integers(0, L, size=12), rng.integers(0, C, size=12)] = 0
+    flags[rng.integers(0, L, size=12), rng.integers(0, C, size=12)] = 3
+    flags[np.arange(0, L, w), 1] = 3         # forced on every block's first window
+    flags[np.arange(w - 1, L, w), 2] = 0     # invalid on every block's last
+    flags[np.arange(0, L, G * R), 5] |= 2    # forced on pass seams
+    for cap in (3, L):
+        want = sc.window_emit_ref(torch.from_numpy(h.view(np.int64)), torch.from_numpy(flags),
+                                  L, w, 0, cap)
+        pos, hsh, count = _split_emissions(h, flags, L, w, 0, cap, G, R)
+        assert np.array_equal(pos, want[0].numpy())
+        assert np.array_equal(hsh, u64.as_u64(want[1]))
+        assert np.array_equal(count, want[2].numpy())
+    assert int(count.max()) > 3
+
+
+def test_split_emissions_on_a_stream():
+    """The same on a stream's own hashes and flags (N runs, a homopolymer, an
+    alternating stretch), against the plain version and the contract."""
+    k, w = 15, 24
+    h, _, flags, C, L = _chunked_hashes(_repeat_stream(12_000, 3), k, w)
+    cap = sc._slot_cap(L, w)
+    want = sc.window_emit_ref(h, flags, L, w, k - 1, cap)
+    assert int((want[2] > cap).sum()) >= 1  # the repeats overflow
+    for G, R in ((2, 8), (5, 2)):
+        pos, hsh, count = _split_emissions(u64.as_u64(h), flags.numpy(), L, w, k - 1, cap, G, R)
+        assert np.array_equal(pos, want[0].numpy())
+        assert np.array_equal(hsh, u64.as_u64(want[1]))
+        assert np.array_equal(count, want[2].numpy())
+
+
+@pytest.mark.parametrize("w,tile,threads", [(10, 1, 32), (10, 4, 32), (1000, 1, 128),
+                                            (1000, 4, 512), (5000, 4, 512), (20000, 1, 512),
+                                            (100, 2, 32), (10, 32, 64), (1000, 32, 512)])
+def test_split_threads(w, tile, threads):
+    """A thread for every 8 rows and chunk, in whole warps that hold whole
+    row groups, at most 512."""
+    assert sc.split_threads(w, tile) == threads
+    assert threads % 32 == 0 and threads % tile == 0 and threads <= sc.SPLIT_MAX_THREADS
+    assert sc.split_threads(w, tile, 256) == min(threads, 256)
+
+
+@pytest.mark.parametrize("C,w,gmem,argmin", [
+    (32577, 1000, (8, 128), (32, 512)), (3345, 10000, (8, 128), (32, 512)),
+    (499, 8363, (1, 256), (4, 512)), (209, 20000, (1, 256), (1, 512)),
+    (65536, 10, (8, 32), (32, 64)), (981, 4243, (2, 128), (8, 512)),
+    (500, 100_000, (1, 256), (4, 512)), (3, 1 << 25, (1, 512), (1, 512))])
+def test_split_launches(C, w, gmem, argmin, monkeypatch):
+    """(chunks, threads) a thread block on a card of 132 SMs: the widest tile
+    that fills the card and whose passes' minima fit in shared memory."""
+    import types
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(multi_processor_count=132))
+    assert sc.gmem_launch(C, w, None) == gmem
+    assert sc.argmin_launch(C, w, None) == argmin
+    for tile, threads in (gmem, argmin):
+        passes = -(-w // (threads // tile * sc.SPLIT_ROWS))
+        assert passes == 1 or 24 * passes * tile <= 200_000
+        assert threads % 32 == 0 and threads % tile == 0
+
+
+def test_window_ops_refuse_windows_the_kernels_cannot_hold():
+    h = torch.zeros((8, 2), dtype=torch.int64)
+    for w in (0, sc.MAX_WINDOW + 1):
+        with pytest.raises(ValueError):
+            sc.window_argmin(h, 4, w, 0)
+
+
+# -- the flag pass -------------------------------------------------------------------
+
+
+def _flags_by_windows(val, L, w, off):
+    """The two bits, window by window."""
+    C = val.shape[1]
+    out = np.zeros((L, C), np.int8)
+    for c in range(C):
+        before = False
+        for j in range(L):
+            ok = bool(val[off + j : off + j + w, c].all())
+            out[j, c] = ok | ((ok and not before) << 1)
+            before = ok
+    return out
+
+
+def _flags_by_lastbad(val, L, w, off, band, segs):
+    """The flag kernel's formulation (csrc/flags.cu): a running last invalid
+    element down each column; a band of rows reads the w rows before it again
+    and is cut into segments, each with its carry from the segments before."""
+    C = val.shape[1]
+    n_el = L + w - 1
+    v = val[off : off + n_el]
+    out = np.full((L, C), -1, np.int8)
+    for b0 in range(0, n_el, band):
+        b1 = min(b0 + band, n_el)
+        lo = max(b0 - w, 0)
+        ln = -(-(b1 - lo) // segs)
+        bounds = [(min(lo + s * ln, b1), min(lo + (s + 1) * ln, b1)) for s in range(segs)]
+        last_of = np.full((segs, C), -1)
+        for s, (e0, e1) in enumerate(bounds):
+            for e in range(e0, e1):
+                last_of[s][v[e] == 0] = e
+        for s, (e0, e1) in enumerate(bounds):
+            first = max(e0, b0, w - 1)
+            if first >= e1:
+                continue
+            last = last_of[:s].max(axis=0, initial=-1) if s else np.full(C, -1)
+            for e in range(e0, first):
+                last[v[e] == 0] = e
+            before = (last < first - w) if first >= w else np.zeros(C, bool)
+            for e in range(first, e1):
+                last[v[e] == 0] = e
+                j = e - w + 1
+                ok = last < j
+                assert (out[j] == -1).all()  # every window written once
+                out[j] = ok | ((ok & ~before) << 1)
+                before = ok
+    assert (out >= 0).all()
+    return out
+
+
+@pytest.mark.parametrize("w,band,segs", [(3, 1000, 4), (16, 40, 4), (16, 16, 3), (40, 100, 32),
+                                         (200, 333, 8), (200, 10_000, 5)])
+def test_window_flags_three_ways(w, band, segs):
+    """``window_flags_ref`` against the two bits stated window by window and
+    against the kernel's `lastbad` formulation with its bands and segments,
+    on pitched and unpitched valid flags."""
+    rng = np.random.default_rng(w + band)
+    L, C, off = 3 * w + 7, 9, 5
+    val = np.ones((off + L + w - 1 + 3, C), np.int8)
+    val[rng.integers(0, val.shape[0], size=25), rng.integers(0, C - 2, size=25)] = 0
+    val[:off, :] = 0                      # rows before `off` do not count
+    val[off + w : off + w + 3, 1] = 0     # a run
+    val[off, 2] = 0                       # the first element
+    val[off + L + w - 2, 3] = 0           # the last
+    val[:, C - 2] = 0
+    want = _flags_by_windows(val, L, w, off)
+    assert want[:, C - 1].tolist() == [3] + [1] * (L - 1) and not want[:, C - 2].any()
+    sc.reset_counts()
+    got = sc.window_flags(torch.from_numpy(val), L, w, off)
+    assert sc.COUNTS["flags_plain"] == 1 and sc.COUNTS["flags"] == 0
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(_flags_by_lastbad(val, L, w, off, band, segs), want)
+    vp = sc.pitched(val.shape[0], C, torch.int8, torch.device("cpu"))
+    sc._padded(vp).fill_(0)  # whatever the pad columns hold must not reach a flag
+    vp.copy_(torch.from_numpy(val))
+    fp = sc.window_flags(vp, L, w, off)
+    assert fp.stride(0) == vp.stride(0) and np.array_equal(fp.numpy(), want)
+
+
+def test_window_flags_refuses_short_input():
+    with pytest.raises(ValueError, match="valid rows"):
+        sc.window_flags(torch.ones((10, 2), dtype=torch.int8), 8, 4, 0)
+
+
+class _Flags(Exception):
+    """Carries the `flags` input of the JAX package's window/emission kernel."""
+
+
+@pytest.mark.parametrize("k,w", [(15, 16), (32, 40)])
+def test_window_flags_match_the_jax_package(k, w, monkeypatch):
+    """The flags that ``_sketch_fused(multi=True)`` hands its window/emission
+    kernel (raw row r: the window of k-mers ending at rows r .. r + w - 1),
+    caught on their way in, against ``window_flags_ref`` on the same layout."""
+    from ntjoin_tpu.ops import sketch_pallas as sp
+
+    class Spy:
+        @staticmethod
+        def __wrapped__(lo, hi, scal, w, flags=None, **kw):
+            raise _Flags(np.asarray(flags))
+
+    rng = np.random.default_rng(k + w)
+    stream = _joined([rng.integers(0, 4, size=ln) for ln in (9_000, 50, 7_000, w + k - 1, 30)], k)
+    n = stream.shape[0]
+    buf = _pallas_buffer(stream, n, k, w)
+    monkeypatch.setattr(sp, "_window_emit_chunked", Spy)
+    with pytest.raises(_Flags) as caught:
+        sp._sketch_fused.__wrapped__(jnp.asarray(buf), n, k, w, 4096 + _CHUNKS, multi=True,
+                                     interpret=True)
+    jflags = caught.value.args[0]
+    rows_out = jflags.shape[0]
+    assert jflags.shape == (rows_out, _CHUNKS) and rows_out >= k - 1 + -(-(n - k + 1) // _CHUNKS)
+    L = -(-(n - k + 1) // _CHUNKS)
+    flat = np.full(_CHUNKS * L + rows_out + w, 4, dtype=np.int8)
+    flat[:n] = stream
+    codes = sc._chunk_view(torch.from_numpy(flat), L, _CHUNKS, rows_out + w).clone()
+    codes[L + w + k - 2 :] = 4  # past a chunk's halo the JAX layout holds padding
+    _, val = sc.hash_chunked_ref(codes, k)
+    got = sc.window_flags_ref(val, rows_out, w, 0)
+    assert np.array_equal(got.numpy(), jflags.astype(np.int8))
+    assert set(np.unique(jflags)) == {0, 1, 3}
