@@ -31,11 +31,11 @@ with a non-zero exit and no result line:
             ``copy_`` into a kept buffer on the profiler's 546 MB array of
             32-bit words; bit-equal; plain, kernel and ``copy_`` timed in
             turns, five rounds; GB/s
-5. sketch   sketch_records_torch on a multi-record batch with N runs against
-            the host oracle, one forced overflow through kernel 3, a batch
-            at w=5000 through the one-chunk tiles and one at w=10000
-            through the device-memory route; every device batch through the
-            flag kernel
+5. sketch   sketch_records_torch on records with and without N runs (the
+            fused and the general path) against the host oracle, one forced
+            overflow through kernel 3, batches at w=5000 through the
+            one-chunk tiles and at w=10000 through the device-memory route;
+            every device batch through the flag kernel
 6. prof     `python -m ntjoin_tpu_torch.kernel_prof` at 2^27 bases, every
             stage: each must print its JSON line, forwarded here; its
             launch counts are the copy kernel's main path
@@ -50,10 +50,35 @@ with a non-zero exit and no result line:
             NumPy graph layers, which share no kernel and no torch op with
             the path under test): every artifact byte-equal, every graph op
             counted on the GPU
+A. general  100 Mbp as 20 seeded draft scaffolds of 5 Mbp (the genome of
+            phase 8 with an N run of 50-500 bp every 2-8 kbp), through the
+            general path (ops/sketch_general.py) at w=1000 and 5000 against
+            the host sketcher record by record, every record counted in
+            general_records, none on the host; at w=1000 the run's own
+            overflowed chunks must take the exact kernel, and that run's
+            launches are the general path's in the kernels line; the path's
+            kernels against their plain versions on the same batch (the
+            exact kernel over the chunks that overflowed); CUDA-event times
+            of hash, compaction, flags, window/emission and the call, the
+            compaction by torch op (torch.profiler), peak bytes a base; a
+            slot_cap=2 run as one more equality check
+B. mk       the Mann-Kendall S (ops/mannkendall.py) of 4,096 runs of 2-2,048
+            positions and two of 100,000 on the card against the CPU, the
+            verdicts against the host scalar test; the op's time beside the
+            CPU's and the scalar test's
+C. draft    phase 8 again with an N-dense draft target (~5 Mbp scaffolds, a
+            gap every 2-8 kbp, misjoined blocks) and mkt=True: 13 artifacts
+            byte-equal, the target on the general path, the op on the card
+D. bound    one record as long as record_bound allows on this card for each
+            path (N-free: fused; an N run of 1-20 bp every 2-8 kbp: general)
+            against the host sketcher, its peak device memory within the
+            path's bytes a base (sketch_records.FUSED_BYTES_PER_BASE,
+            GENERAL_BYTES_PER_BASE)
 
-The last three lines are the kernels' JSON record, the card's
-name and power limit, and {"ok": true, "device": {...}}.  Imports neither
-JAX nor the JAX package.
+The last three lines are the kernels' JSON record (with the general path's
+launches and times from phase A's run where a kernel runs on it), the card's
+name and power limit, and {"ok": true, "device": {...}}.  Imports neither JAX nor the JAX
+package.
 """
 from __future__ import annotations
 
@@ -70,13 +95,17 @@ import numpy as np
 import torch
 
 from ntjoin_tpu_torch import kernel_prof
+from ntjoin_tpu_torch.core import orientation
 from ntjoin_tpu_torch.core.assembly import AssemblySketch, SharedIndex
 from ntjoin_tpu_torch.graph.mingraph import build_graph
 from ntjoin_tpu_torch.graph.paths import find_paths
 from ntjoin_tpu_torch.io import native
 from ntjoin_tpu_torch.ops import device_index as di
+from ntjoin_tpu_torch.ops import mannkendall as mk
 from ntjoin_tpu_torch.ops import membw
 from ntjoin_tpu_torch.ops import sketch_cuda as sc
+from ntjoin_tpu_torch.ops import sketch_general as sg
+from ntjoin_tpu_torch.ops import sketch_records as sr
 from ntjoin_tpu_torch.ops.nthash_np import sketch_codes
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -514,6 +543,16 @@ def _same(got, recs, what: str, w: int = W) -> None:
             fail(f"{what}: record {i} ({c.shape[0]} bases) differs from the oracle")
 
 
+def _peak_bytes(fn):
+    """(fn(), the most device memory it held above what was held before)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
 def _flags_counted(counts: dict) -> None:
     """Every device batch launches the hash kernel and the flag kernel once."""
     if counts["flags"] < 1 or counts["flags"] != counts["hash"] or counts["flags_plain"]:
@@ -537,17 +576,18 @@ def sketch() -> int:
     bases = sum(c.shape[0] for c in recs)
     sc.reset_counts()
     t0 = time.monotonic()
-    got = sc.sketch_records_torch(recs, K, W, "cuda")
+    got, peak = _peak_bytes(lambda: sr.sketch_records_torch(recs, K, W, "cuda"))
     wall = time.monotonic() - t0
     _same(got, recs, "sketch")
     say(f"== sketch: {len(recs)} records, {bases} bases in {wall:.3f} s; equal to the "
         f"{oracle}; counts {json.dumps(sc.COUNTS)}")
+    say(f"   peak device memory of the batch {peak} bytes, {peak / bases:.2f} a base")
     if sc.COUNTS["host_records"]:
         fail("a record took the host sketcher")
     _flags_counted(sc.COUNTS)
     small = recs[-12:]
     sc.reset_counts()
-    got = sc.sketch_records_torch(small, K, W, "cuda", slot_cap=2)
+    got = sr.sketch_records_torch(small, K, W, "cuda", slot_cap=2)
     _same(got, small, "forced overflow")
     if sc.COUNTS["exact_runs"] < 1 or sc.COUNTS["window"] < 1:
         fail(f"slot_cap=2 did not take the exact path: {sc.COUNTS}")
@@ -562,7 +602,7 @@ def sketch() -> int:
     for w, route, other in ((W_LONG, "window_emit", "window_emit_gmem"),
                             (W_GMEM, "window_emit_gmem", "window_emit")):
         sc.reset_counts()
-        got = sc.sketch_records_torch(long_w, K, w, "cuda")
+        got = sr.sketch_records_torch(long_w, K, w, "cuda")
         counts = dict(sc.COUNTS)
         _same(got, long_w, f"w={w}", w)
         if counts[route] < 1 or counts[other] or counts["host_records"]:
@@ -710,7 +750,259 @@ def graph(n_mx: int = 2_000_000, device: str = "cuda") -> None:
         say(f"   {stage}: device {p:.4f} s, host {h:.4f} s")
 
 
-# -- phase 8: end to end ---------------------------------------------------------
+# -- phase A: the general path at full size ------------------------------------------
+
+
+def _paint_gaps(rng, c: np.ndarray) -> int:
+    """An N run of 50-500 bp every 2-8 kbp, as in a draft scaffold of a
+    short-read assembly; returns the number of runs."""
+    s, runs = int(rng.integers(0, 8000)), 0
+    while s < c.shape[0]:
+        ln = int(rng.integers(50, 501))
+        c[s : s + ln] = 4
+        s += ln + int(rng.integers(2000, 8001))
+        runs += 1
+    return runs
+
+
+def _kernel_split(fn, top: int = 10) -> str:
+    """The device time of one call of fn by torch op (the kernels each op
+    launched itself, from torch.profiler's CPU and CUDA activity); "not
+    measured" where the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.key.startswith("aten::") and e.self_device_time_total > 0]
+    if not rows:
+        return "not measured (no device time in the trace)"
+    rows.sort(key=lambda r: -r[2])
+    total = sum(ms for _, _, ms in rows)
+    return f"{total:.3f} ms in all; " + "; ".join(
+        f"{k} x{n} {ms:.3f} ms" for k, n, ms in rows[:top])
+
+
+def _counted_route(counts: dict, w: int, what: str) -> None:
+    """The general batch launched the hash, flag and window/emission kernels
+    of its route, no plain version, and the host sketched nothing."""
+    route = "window_emit" if sc.emit_tile(w) else "window_emit_gmem"
+    if (counts["hash"] < 1 or counts["flags"] != counts["hash"] or counts[route] < 1
+            or counts["host_records"] or any(counts[f"{op}_plain"] for op in sc._OPS)):
+        fail(f"{what}: the general path did not run on its kernels: {counts}")
+
+
+def general() -> dict[str, dict]:
+    """Phase A: 100 Mbp of draft scaffolds through the general path at
+    w=1000 and 5000 against the host oracle, its kernels against their plain
+    versions on the same batch, and CUDA-event times of its stages; returns
+    the general path's launches in its own run at w=1000 and its kernels'
+    times, plain times and bounds on that batch."""
+    rng = np.random.default_rng(61)
+    recs = genome(rng, [5_000_000] * 20)
+    runs = sum(_paint_gaps(rng, c) for c in recs)
+    bases = sum(c.shape[0] for c in recs)
+    say(f"== general: {len(recs)} draft scaffolds, {bases} bases (the genome of phase 8), "
+        f"{runs} more N runs of 50-500 bp every 2-8 kbp")
+    out = {}
+    for w in (W, W_LONG):
+        sc.reset_counts()
+        t0 = time.monotonic()
+        got, peak = _peak_bytes(lambda: sr.sketch_records_torch(recs, K, w, "cuda"))
+        wall = time.monotonic() - t0
+        counts = dict(sc.COUNTS)
+        _same(got, recs, f"general path, w={w}", w)
+        if counts["general_records"] != len(recs) or counts["general_batches"] != 1:
+            fail(f"w={w}: the records did not take the general path in one batch: {counts}")
+        _counted_route(counts, w, f"w={w}")
+        say(f"   w={w}: sketch_records_torch {wall:.3f} s, equal to the host sketcher record by "
+            f"record; peak device memory {peak} bytes, {peak / bases:.2f} a base; counts "
+            f"{json.dumps(counts)}")
+        if w == W:
+            if counts["window"] < 1:
+                fail(f"w={w}: no chunk of the stream overflowed, the exact kernel did not run")
+            launches = {name: counts[name] for name in ("hash", "flags", "window_emit", "window")}
+            sc.reset_counts()
+            _same(sr.sketch_records_torch(recs, K, w, "cuda", slot_cap=2), recs,
+                  f"general path, slot_cap=2, w={w}", w)
+            say(f"   w={w}, slot_cap=2 (an equality check only): equal to the host sketcher")
+
+        # the batch's kernels against their plain versions
+        host, total, offsets = sr.pack_batch(recs, K, w)
+        flat, starts = host.cuda(), torch.from_numpy(offsets).cuda()
+        h, val, L = sg.hash_batch(flat, total, K, w)
+        C = h.shape[1]
+        _compare(f"general hash (w={w})", (h, val),
+                 sc.hash_chunked_ref(sc._chunk_view(flat, L, C, L + K - 1), K))
+
+        def compaction():
+            pos = sg.valid_positions(val, L, total, starts, K)
+            hflat, Ls = sg.gather_stream(h, pos, L, K, w)
+            vflat = sg.stream_valid(pos, starts, hflat.shape[0])
+            return sg.stream_chunks(hflat, Ls, w), sg.stream_chunks(vflat, Ls, w), Ls, pos
+
+        hs, vs, Ls, pos = compaction()
+        flags, _ = _flags(vs, Ls, w, 0, f"general, w={w}")
+        cap = sc._slot_cap(Ls, w)
+        emitted = sc.window_emit(hs, flags, Ls, w, 0, cap)
+        _compare(f"general window/emission (w={w})", emitted,
+                 sc.window_emit_ref(hs, flags, Ls, w, 0, cap))
+        over = torch.nonzero(emitted[2] > cap).flatten()
+        del emitted
+        _compare(f"general exact window, {over.numel()} chunks (w={w})",
+                 (sc.window_argmin(hs, Ls, w, 0, over),),
+                 (sc.window_argmin_ref(hs, Ls, w, 0, over),))
+        kern = sg.sketch_general_torch(flat, total, starts, K, w)
+        _compare(f"general path (w={w})", kern,
+                 sg.sketch_general_torch(flat, total, starts, K, w, plain=True))
+        _compare(f"general path, slot_cap=2 (w={w})",
+                 sg.sketch_general_torch(flat, total, starts, K, w, slot_cap=2), kern)
+        t = {"hash": _time_ms(lambda: sg.hash_batch(flat, total, K, w), 3),
+             "compaction": _time_ms(compaction, 3),
+             "flags": _time_ms(lambda: sc.window_flags(vs, Ls, w, 0), 5),
+             "window_emit": _time_ms(lambda: sc.window_emit(hs, flags, Ls, w, 0, cap), 5),
+             "call": _time_ms(lambda: sg.sketch_general_torch(flat, total, starts, K, w), 3)}
+        say(f"   w={w}: kernels bit-equal to their plain versions on the batch (hash: C={C} "
+            f"chunks of L={L}; stream of {pos.shape[0]} k-mers and dead slots: C={hs.shape[1]} "
+            f"chunks of L={Ls}; the exact kernel over the {over.numel()} chunks that "
+            f"overflowed {cap} slots; the whole call, and with slot_cap=2)")
+        say(f"   w={w} times (CUDA events): " + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items())
+            + f"; {total / t['call'] / 1e6:.2f} Gbases/s")
+        if w == W:
+            view = sc._chunk_view(flat, L, C, L + K - 1)
+            Cs = hs.shape[1]
+            out = {
+                "hash": {"ms": t["hash"], **bound(flat.numel() + 9 * (L + K - 1) * C,
+                                                  12 * (L + K - 1) * C),
+                         "plain_ms": _time_ms(lambda: sc.hash_chunked_ref(view, K), 1)},
+                "flags": _flag_times(vs, Ls, w, 0),
+                "window_emit": {"ms": t["window_emit"], **_emit_bound(Ls, Cs, w, cap),
+                                "plain_ms": _time_ms(lambda: sc.window_emit_ref(
+                                    hs, flags, Ls, w, 0, cap), 1)},
+                # over this run's overflowed chunks, queued as in phase 3
+                "window": {"ms": _time_queued_ms(lambda: sc.window_argmin(hs, Ls, w, 0, over), 50),
+                           **_argmin_bound(Ls, over.numel(), w),
+                           "plain_ms": _time_ms(lambda: sc.window_argmin_ref(
+                               hs, Ls, w, 0, over), 5)},
+            }
+            for name, n in launches.items():
+                out[name]["launches"] = n
+            for name, r in out.items():
+                say(f"   general {name} at w={w}: kernel {r['ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+                    f"({r['bound_bytes']} bytes); {r['launches']} launches in the run")
+            say("   the compaction's device time by kernel (torch.profiler, one call): "
+                + _kernel_split(compaction))
+        del h, val, hs, vs, pos, flags, flat, host, kern
+    return out
+
+
+def _sparse_gaps(rng, c: np.ndarray, longest: int = 20) -> None:
+    """An N run of 1-``longest`` bp every 2-8 kbp: nearly every k-mer stays
+    valid, the general path's most memory a base."""
+    at = np.cumsum(rng.integers(2000, 8001, size=c.shape[0] // 2000 + 1))
+    at = at[at < c.shape[0] - longest]
+    ln = rng.integers(1, longest + 1, size=at.shape[0])
+    step = np.arange(longest)
+    c[(at[:, None] + step)[step < ln[:, None]]] = 4
+
+
+def bound_records() -> None:
+    """Phase D: for each path one record as long as ``record_bound`` lets
+    the card take, against the host sketcher, its peak device memory within
+    the path's bytes a base."""
+    dev = torch.device("cuda")
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+    rng = np.random.default_rng(83)
+    for general, per in ((False, sr.FUSED_BYTES_PER_BASE), (True, sr.GENERAL_BYTES_PER_BASE)):
+        n = sr.record_bound(dev, general)
+        c = rng.integers(0, 4, size=n, dtype=np.uint8)
+        if general:
+            _sparse_gaps(rng, c)
+        path = "general" if general else "fused"
+        torch.cuda.empty_cache()
+        sc.reset_counts()
+        t0 = time.monotonic()
+        (got,), peak = _peak_bytes(lambda: sr.sketch_records_torch([c], K, W, "cuda"))
+        wall = time.monotonic() - t0
+        counts = dict(sc.COUNTS)
+        if counts["host_records"] or counts["general_records"] != int(general):
+            fail(f"bound: the {n}-base record did not take the {path} path: {counts}")
+        t0 = time.monotonic()
+        want = _oracle(c, W)
+        host_s = time.monotonic() - t0
+        if not (np.array_equal(got.positions, want.positions)
+                and np.array_equal(got.hashes, want.hashes)):
+            fail(f"bound: the {n}-base record on the {path} path differs from the host sketcher")
+        say(f"== bound ({path} path): one record of {n} bases (record_bound on a card of "
+            f"{total_mem} bytes; MAX_RECORD_BASES {sr.MAX_RECORD_BASES}), "
+            f"{int((c >= 4).sum())} N bases; equal to the host sketcher ({got.positions.shape[0]} "
+            f"minimizers); sketch_records_torch {wall:.3f} s, host {host_s:.3f} s; peak device "
+            f"memory {peak} bytes, {peak / n:.2f} a base (bound {per}), "
+            f"{peak / total_mem:.3f} of the card")
+        if peak > per * n:
+            fail(f"bound: the {path} path held {peak / n:.2f} bytes a base, over {per}")
+        del c, got, want
+
+
+# -- phase B: Mann-Kendall ------------------------------------------------------------
+
+
+def mann_kendall() -> None:
+    """Phase B: the batched Mann-Kendall S on the card against the CPU, on
+    runs of the sizes a 1 Gbp path gives; the op's time beside the host
+    scalar route's on the same runs, and the verdicts of both."""
+    rng = np.random.default_rng(71)
+    lengths = [int(n) for n in rng.integers(2, 2049, size=4096)] + [100_000, 100_000]
+    runs = []
+    for n in lengths:
+        x = np.sort(rng.integers(0, 50_000_000, size=n))
+        swap = rng.random(n) < 0.2
+        x[swap] = rng.integers(0, 50_000_000, size=int(swap.sum()))
+        runs.append((x if rng.random() < 0.5 else x[::-1]).tolist())
+    batches = [(torch.from_numpy(pos).cuda(), torch.from_numpy(lengths).cuda())
+               for _, pos, lengths in orientation._mk_batches(runs)]
+
+    def op():
+        for pos, lengths in batches:
+            mk.mk_s_batch(pos, lengths)
+
+    op_ms = _time_ms(op, 3)
+    split = _kernel_split(op)
+    mk.reset_counts()
+    t0 = time.monotonic()
+    s_card = orientation._mk_s(runs, torch.device("cuda"))
+    card_s = time.monotonic() - t0
+    counts = dict(mk.COUNTS)
+    if counts["device"] != "cuda" or counts["mk_runs"] != len(runs):
+        fail(f"mann-kendall: the op did not run on the card: {counts}")
+    t0 = time.monotonic()
+    s_cpu = orientation._mk_s(runs, torch.device("cpu"))
+    cpu_s = time.monotonic() - t0
+    if s_card != s_cpu:
+        fail(f"mann-kendall: S differs between the card and the CPU in "
+             f"{sum(x != y for x, y in zip(s_card, s_cpu))} runs")
+    t0 = time.monotonic()
+    scalar = [orientation.determine_orientation(r, True, 90) for r in runs]
+    scalar_s = time.monotonic() - t0
+    if orientation.determine_orientations(runs, True, 90, "cuda") != scalar:
+        fail("mann-kendall: the batched verdicts differ from the scalar route's")
+    say(f"== mann-kendall: {len(runs)} runs (B=4096 of L=2..2048 positions, 2 of 100,000), "
+        f"{counts['mk_batches']} batches by padded width; S equal on the card and the CPU; "
+        f"verdicts {sum(v == '+' for v in scalar)} +, {sum(v == '-' for v in scalar)} -, "
+        f"{sum(v == '?' for v in scalar)} ? as the scalar route's")
+    pairs = sum(int(p.shape[0]) * int(p.shape[1]) * (int(p.shape[1]) - 1) // 2
+                for p, _ in batches)
+    say(f"   the op on the card {op_ms:.3f} ms for {len(batches)} batches of {pairs} padded "
+        f"pairs (CUDA events); with the host's packing and copies {card_s:.3f} s; the same op "
+        f"on the CPU {cpu_s:.3f} s; the host scalar route {scalar_s:.3f} s")
+    say(f"   the op's device time by kernel (torch.profiler, one pass): {split}")
+
+
+# -- phase 8 and phase C: end to end ---------------------------------------------------
 
 _ASCII = np.frombuffer(b"ACGTN", dtype=np.uint8)
 
@@ -761,9 +1053,8 @@ def _revcomp(c: np.ndarray) -> np.ndarray:
     return r
 
 
-def assemblies(work: str, chroms: list[np.ndarray], rng, n_contigs: int) -> None:
-    """ref1 = the chromosomes, ref2 = 0.1% substitutions, target = shuffled
-    contigs, a quarter reverse-complemented, some with terminal Ns."""
+def references(work: str, chroms: list[np.ndarray], rng) -> None:
+    """ref1 = the chromosomes, ref2 = 0.1% substitutions."""
     names = [f"chr{i + 1}" for i in range(len(chroms))]
     _fasta(os.path.join(work, "ref1.fa"), names, chroms)
     subs = []
@@ -774,6 +1065,11 @@ def assemblies(work: str, chroms: list[np.ndarray], rng, n_contigs: int) -> None
         c2[idx] = (c2[idx] + rng.integers(1, 4, size=idx.shape[0])) % 4
         subs.append(c2)
     _fasta(os.path.join(work, "ref2.fa"), names, subs)
+
+
+def contigs_target(work: str, chroms: list[np.ndarray], rng, n_contigs: int = 2000) -> None:
+    """target = shuffled contigs, a quarter reverse-complemented, some with
+    terminal Ns."""
     total = sum(c.shape[0] for c in chroms)
     contigs = []
     for c in chroms:
@@ -793,6 +1089,30 @@ def assemblies(work: str, chroms: list[np.ndarray], rng, n_contigs: int) -> None
     order = rng.permutation(len(contigs))
     _fasta(os.path.join(work, "target.fa"), [f"contig{i}" for i in range(len(order))],
            [contigs[i] for i in order])
+
+
+def draft_target(work: str, chroms: list[np.ndarray], rng) -> None:
+    """target = a short-read draft: scaffolds of ~5 Mbp with an N gap of
+    50-500 bp every 2-8 kbp (past the segmented route's guard at w=1000),
+    every third with two 30 kbp blocks swapped (a misjoin: positions not
+    monotonic, so Mann-Kendall decides its orientation), a quarter
+    reverse-complemented, shuffled."""
+    scaffolds = []
+    for c in chroms:
+        m = max(1, round(c.shape[0] / 5_000_000))
+        for piece in np.array_split(c, m):
+            piece = piece.copy()
+            _paint_gaps(rng, piece)
+            if len(scaffolds) % 3 == 1:
+                a = piece.shape[0] // 3
+                piece[a : a + 60_000] = np.concatenate([piece[a + 30_000 : a + 60_000],
+                                                        piece[a : a + 30_000]])
+            if rng.random() < 0.25:
+                piece = _revcomp(piece)
+            scaffolds.append(piece)
+    order = rng.permutation(len(scaffolds))
+    _fasta(os.path.join(work, "target.fa"), [f"scaffold{i}" for i in range(len(order))],
+           [scaffolds[i] for i in order])
 
 
 def _run(cmd: list[str], cwd: str) -> tuple[float, str]:
@@ -820,22 +1140,28 @@ def _counts_line(out: str, key: str) -> dict:
     return json.loads(line.split("\t", 1)[1])
 
 
-def e2e(sizes: list[int], n_contigs: int) -> dict[str, int]:
-    """Phase 8: the port's assemble on the card against its host path (C++
-    sketcher, NumPy graph layers); returns the card run's sketch counts."""
+def e2e(sizes: list[int], target, words: tuple[str, ...] = (),
+        what: str = "e2e") -> tuple[dict, dict]:
+    """Phase 8 (and phase C): the port's assemble on the card against its
+    host path (C++ sketcher, NumPy graph layers), with the target that
+    ``target`` writes and the extra ``words``; returns the card run's sketch
+    and Mann-Kendall counts."""
     rng = np.random.default_rng(5)
     with tempfile.TemporaryDirectory(prefix="ntjoin_smoke_") as tmp:
         port, ref = os.path.join(tmp, "port"), os.path.join(tmp, "ref")
         os.makedirs(port)
         os.makedirs(ref)
         t0 = time.monotonic()
-        assemblies(port, genome(rng, sizes), rng, n_contigs)
+        chroms = genome(rng, sizes)
+        references(port, chroms, rng)
+        target(port, chroms, rng)
         for fa in ("ref1.fa", "ref2.fa", "target.fa"):
             os.link(os.path.join(port, fa), os.path.join(ref, fa))
-        say(f"== e2e: {sum(sizes)} bp genome in {len(sizes)} chromosomes, written in "
+        say(f"== {what}: {sum(sizes)} bp genome in {len(sizes)} chromosomes, target by "
+            f"{target.__name__}, {' '.join(words) or 'no more words'}; written in "
             f"{time.monotonic() - t0:.1f} s")
         args = ["target=target.fa", "references=ref1.fa ref2.fa", "reference_weights=2 2",
-                f"k={K}", f"w={W}", "n=2", "agp=True", "time=True", "prefix=e2e"]
+                f"k={K}", f"w={W}", "n=2", "agp=True", "time=True", "prefix=e2e", *words]
         host = "native" if native.available() else "numpy"
         p_wall, p_out = _run([sys.executable, "-m", "ntjoin_tpu_torch.cli", "assemble", "-B",
                               "backend=cuda", *args], port)
@@ -878,7 +1204,10 @@ def e2e(sizes: list[int], n_contigs: int) -> dict[str, int]:
         for op in di.GRAPH_OPS:
             if index[op]["launches"] < 1 or index[op]["device"] != "cuda":
                 fail(f"graph op {op} did not run on the GPU in the e2e run: {index}")
-        return counts
+        mk_counts = _counts_line(p_out, "mk_counts")
+        say(f"   card run's Mann-Kendall counts: {json.dumps(mk_counts)}; the host run's: "
+            f"{json.dumps(_counts_line(r_out, 'mk_counts'))}")
+        return counts, mk_counts
 
 
 JSON_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -892,12 +1221,24 @@ def main() -> int:
     counts = {"window_emit_gmem": sketch()}
     counts["copy"] = prof()["copy"]  # the profiler is the copy kernel's main path
     graph()
-    run = e2e([24_000_000, 22_000_000, 20_000_000, 18_000_000, 16_000_000], 2000)
+    general_path = general()
+    mann_kendall()
+    sizes = [24_000_000, 22_000_000, 20_000_000, 18_000_000, 16_000_000]
+    run, _ = e2e(sizes, contigs_target)
     if run["host_records"] != 0:
         fail(f"{run['host_records']} records took the host sketcher")
     if run["flags"] != run["hash"]:
         fail(f"the e2e run's batches went round the flag kernel: {run}")
     counts.update({name: run[name] for name in ("hash", "flags", "window_emit", "window")})
+    # phase C: the same genome, an N-dense draft target, mkt=True
+    draft, mk_run = e2e(sizes, draft_target, ("mkt=True",), "e2e, N-dense draft, mkt=True")
+    if draft["general_records"] < 1 or draft["host_records"]:
+        fail(f"the draft's N-dense scaffolds did not take the general path: {draft}")
+    _counted_route(draft, W, "e2e draft")
+    if mk_run["device"] != "cuda" or mk_run["mk_runs"] < 1:
+        fail(f"the Mann-Kendall op did not run on the card in the mkt=True run: {mk_run}")
+    bound_records()
+
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "ntjoin_tpu"
               or m.startswith("ntjoin_tpu.")]
@@ -910,7 +1251,10 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": counts[name],
          **{key: times[name][key] for key in JSON_KEYS + ("bound_bytes",)},
-         **{key: times[name][key] for key in ("launch_floor_ms",) if key in times[name]}}
+         **{key: times[name][key] for key in ("launch_floor_ms",) if key in times[name]},
+         **({"launches_general": general_path[name]["launches"]}
+            if name in general_path else {}),
+         **({"general_ms": general_path[name]["ms"]} if name in general_path else {})}
         for name in sc.KERNELS
     ]}))
     say(smi)

@@ -4,6 +4,9 @@ Usage::
 
     python -m ntjoin_tpu_torch.cli assemble -B target=scaf.fa references='ref.fa' \\
         reference_weights='2' k=32 w=1000 n=2 [backend=cuda] [agp=True] [time=True] ...
+    python -m ntjoin_tpu_torch.cli analysis target=scaf.fa references='ref.fa' ref=truth.fa
+    python -m ntjoin_tpu_torch.cli quast target=scaf.fa references='ref.fa' ref=truth.fa [large=1]
+    python -m ntjoin_tpu_torch.cli all | help | version | check_install
 
 The key=value surface is the JAX package's.  Sketch backends:
 
@@ -18,7 +21,8 @@ graph build, connected components and path passes as torch ops
 NumPy host layers (``core/assembly.py``, ``graph/``); ``auto`` (the
 default) is ``device`` for the cuda and torch backends and ``host`` for
 native and numpy, as ``ntjoin_tpu.cli`` resolves it for its device
-backends.  Options whose device code is not ported yet are refused.
+backends; the Mann-Kendall op of ``mkt=True`` runs on the same device.
+Options whose device code is not ported yet are refused.
 """
 from __future__ import annotations
 
@@ -31,23 +35,19 @@ import sys
 import numpy as np
 import torch
 
+from ntjoin_tpu_torch.analysis import MissingToolError, align_to_reference, run_quast
 from ntjoin_tpu_torch.core.assembly import AssemblySketch
 from ntjoin_tpu_torch.core.config import ScaffoldConfig
 from ntjoin_tpu_torch.core.scaffolder import Scaffolder
 from ntjoin_tpu_torch.emit.writers import write_minimizer_tsv
 from ntjoin_tpu_torch.io import native
 from ntjoin_tpu_torch.io.fasta import read_fasta, write_fai
-from ntjoin_tpu_torch.ops import device_index, sketch_cuda
-from ntjoin_tpu_torch.ops.nthash_np import sketch_codes
+from ntjoin_tpu_torch.ops import device_index, mannkendall, sketch_cuda, sketch_records
+from ntjoin_tpu_torch.ops.nthash_np import sketch_codes, sketch_seq
 from ntjoin_tpu_torch.utils.atomic import atomic_write
 from ntjoin_tpu_torch.utils.timers import StageTimers
 
-USAGE = (
-    "usage: python -m ntjoin_tpu_torch.cli assemble [-B] target=<fa> references='<fa> ...' "
-    "reference_weights='<w> ...' [k=32] [w=1000] [n=1] [backend=cuda|torch|native|numpy] "
-    "[index_backend=auto|device|host] [device=cpu] [agp=True] [time=True] ...  "
-    "(keys as in ntjoin_tpu.cli)"
-)
+VERSION = "ntjoin-tpu 0.1.0 (capability parity target: ntJoin v1.1.5)"
 
 _DEFAULTS = {
     "target": "None",
@@ -121,8 +121,6 @@ def _refusal(v: dict[str, str]) -> str | None:
                 "(ROADMAP Queue A items 2-3)")
     if backend not in ("auto", "cuda", "torch", "native", "numpy"):
         return f"unknown backend={backend} (cuda, torch, native or numpy)"
-    if _truthy(v["mkt"]):
-        return "mkt=True is not ported yet (ROADMAP Queue A item 9)"
     if int(v["n_procs"]) > 1 or v["coordinator"] != "None":
         return "n_procs>1 is not ported yet (ROADMAP Queue A item 12)"
     return None
@@ -142,9 +140,9 @@ def _index_backend(v: dict[str, str]) -> tuple[str, str]:
 def _sketcher(backend: str, device: str):
     """(records' codes, k, w) -> list of Sketch for one assembly."""
     if backend in ("auto", "cuda"):
-        return lambda codes, k, w: sketch_cuda.sketch_records_torch(codes, k, w, "cuda")
+        return lambda codes, k, w: sketch_records.sketch_records_torch(codes, k, w, "cuda")
     if backend == "torch":
-        return lambda codes, k, w: sketch_cuda.sketch_records_torch(
+        return lambda codes, k, w: sketch_records.sketch_records_torch(
             codes, k, w, device, plain=True)
     if backend == "native":
         if not native.available():
@@ -238,7 +236,7 @@ def assemble(words: list[str]) -> int:
         w=w,
         g=int(v["g"]),
         G=int(v["G"]),
-        mkt=False,
+        mkt=_truthy(v["mkt"]),
         m=int(v["m"]),
         t=int(v["assemble_t"]),
         agp=_truthy(v["agp"]),
@@ -250,6 +248,7 @@ def assemble(words: list[str]) -> int:
         index_backend=index_backend,
     )
     device_index.reset_counts()
+    mannkendall.reset_counts()
     with timers.stage("scaffold"):
         Scaffolder(cfg, sketch_cache=cache, device=index_device).run()
 
@@ -268,15 +267,181 @@ def assemble(words: list[str]) -> int:
     if timers.enabled:
         print("sketch_counts\t" + json.dumps(sketch_cuda.COUNTS))
         print("index_counts\t" + json.dumps(device_index.counts_report()))
+        print("mk_counts\t" + json.dumps(mannkendall.COUNTS))
     return 0
+
+
+def _resolve_fasta(path: str) -> str | None:
+    """Existing path for a FASTA artifact, accepting the gzip=True variant
+    (``assemble gzip=True`` replaces ``<fa>`` with ``<fa>.gz``; minimap2,
+    QUAST and our reader all take gzipped FASTA directly)."""
+    if os.path.exists(path):
+        return path
+    if os.path.exists(path + ".gz"):
+        return path + ".gz"
+    return None
+
+
+def analysis(words: list[str]) -> int:
+    """Alignment/QUAST evaluation of inputs and outputs vs a truth reference
+    (mirror of the reference's ``analysis`` Make target, ``ntJoin:158-161``)."""
+    v = _parse_vars([w for w in words if not w.startswith("-")])
+    ref = v.get("ref", "None")
+    if ref == "None":
+        print("ERROR: must set ref", file=sys.stderr)
+        return 1
+    if v["target"] == "None":
+        print("ERROR: Must set target", file=sys.stderr)
+        return 1
+    k, w, n = int(v["k"]), int(v["w"]), int(v["n"])
+    references = v["references"].split() if v["references"] != "None" else []
+    targets = references + [
+        v["target"],
+        f"{v['target']}.k{k}.w{w}.n{n}.all.scaffolds.fa",
+    ]
+    try:
+        for fa in targets:
+            fa = _resolve_fasta(fa)
+            if fa is not None:
+                bam = align_to_reference(fa, ref, threads=int(v["t"]))
+                print(f"aligned {fa} -> {bam}")
+    except MissingToolError as exc:
+        print(f"ERROR: {exc}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def quast(words: list[str]) -> int:
+    """QUAST evaluation of references + target + all.scaffolds vs a truth
+    reference (mirror of the reference's ``quast_$(prefix)/report.tsv``
+    target, ``ntJoin:244-252``): ``--fast --scaffold-gap-max-size 100000
+    --split-scaffolds`` plus ``--large`` when ``large=1``."""
+    v = _parse_vars([w for w in words if not w.startswith("-")])
+    ref = v.get("ref", "None")
+    if ref == "None":
+        print("ERROR: must set ref", file=sys.stderr)
+        return 1
+    if v["target"] == "None":
+        print("ERROR: Must set target", file=sys.stderr)
+        return 1
+    k, w, n = int(v["k"]), int(v["w"]), int(v["n"])
+    prefix = v["prefix"] or f"out.k{k}.w{w}.n{n}"
+    references = v["references"].split() if v["references"] != "None" else []
+    assemblies = [
+        fa
+        for fa in (
+            _resolve_fasta(p)
+            for p in references
+            + [v["target"], f"{v['target']}.k{k}.w{w}.n{n}.all.scaffolds.fa"]
+        )
+        if fa is not None
+    ]
+    try:
+        report = run_quast(
+            assemblies, ref, f"quast_{prefix}", threads=int(v["t"]),
+            large=v.get("large", "0") == "1",
+        )
+    except MissingToolError as exc:
+        print(f"ERROR: {exc}", file=sys.stderr)
+        return 1
+    print(f"QUAST report: {report}")
+    return 0
+
+
+def check_install() -> int:
+    """Counterpart of the reference's check_install target
+    (``ntJoin:192-198``): the host sketch, the native library and the GPU."""
+    sk = sketch_seq("ACGT" * 64, 15, 10)
+    if sk.positions.size == 0:
+        print("core sketch: FAILED (no minimizers)", file=sys.stderr)
+        return 1
+    print("core sketch: OK")
+    print(f"native library: {'OK' if native.available() else 'MISSING (no g++ to build it)'}")
+    if torch.cuda.is_available():
+        print(f"CUDA device: OK ({torch.cuda.get_device_name(0)}, "
+              f"{torch.cuda.device_count()} device(s))")
+    else:
+        print("CUDA device: none (torch.cuda.is_available() is False; backend=torch, "
+              "native and numpy run on the CPU)")
+    return 0
+
+
+HELP_TEXT = """
+ntjoin-tpu (PyTorch port): Scaffolding assemblies using reference assemblies and minimizer graphs
+{version}
+Usage: python -m ntjoin_tpu_torch.cli assemble target=<target scaffolds> references='List of reference assemblies' reference_weights='List of weights per reference assembly'
+
+Options:
+target\t\t\tTarget assembly to be scaffolded in fasta format
+references\t\tList of reference files (separated by a space, in fasta format)
+target_weight\t\tWeight of target assembly [1]
+reference_weights\tList of weights of reference assemblies
+prefix\t\t\tPrefix of intermediate output files [out.k<k>.w<w>.n<n>]
+t\t\t\tNumber of threads [4]
+assemble_t\t\tNumber of threads for assembling stage [1]
+k\t\t\tK-mer size for minimizers [32]
+w\t\t\tWindow size for minimizers (bp) [1000]
+n\t\t\tMinimum graph edge weight [1]
+g\t\t\tMinimum gap size (bp) [20]
+G\t\t\tMaximum gap size (bp) (0 if no maximum) [0]
+m\t\t\tMinimum percentage of increasing/decreasing minimizer positions to orient contig [90]
+mkt\t\t\tIf True, use Mann-Kendall Test to predict contig orientation (computationally-intensive, overrides 'm') [False]
+agp\t\t\tIf True, output AGP file describing output scaffolds [False]
+no_cut\t\t    \tIf True, will not cut contigs at putative misassemblies [False]
+overlap\t\t\tIf True, attempts to detect and trim overlaps between joined sequences [True]
+overlap_g\t\tGap size between trimmed overlapping segments (used if overlap=True) [g]
+overlap_k\t\tK-mer size for overlap minimizers (bp) [15]
+overlap_w\t\tWindow size for overlap minimizers (bp) [10]
+time\t\t    \tIf True, will log the time for each step, and the kernels' and ops' counts [False]
+gzip\t\t\tIf True, gzip the output scaffold FASTAs (pigz -p t when available) [False]
+reference_config\tConfig file with reference assemblies and reference weights as comma-separated values (See README for example)
+\t\t\t This is optional, and will override the 'references' and 'reference_weights' variables if specified
+
+GPU options:
+backend\t\t\tMinimizer sketch backend: auto (= cuda) | cuda (CUDA kernels) | torch (their plain PyTorch versions on 'device') | native | numpy [auto]
+device\t\t\tTorch device of backend=torch and of its index stages [cpu]
+index_backend\t\tFilter/graph stage placement: auto (device for cuda and torch, host for native and numpy) | device | host [auto]
+n_procs\t\t\tMulti-process distributed mode: not ported yet, refused unless 1 [1]
+process_id\t\tThis process's id in the distributed mode [0]
+coordinator\t\tCoordinator address of the distributed mode [None]
+local_devices\t\tDevices visible to this process (distributed mode) [None]
+
+Notes:
+\t- Ensure the lists of reference assemblies and weights are in the same order, and that both are space-separated
+\t- Ensure all assembly files are in the current working directory
+
+Other commands:
+\tpython -m ntjoin_tpu_torch.cli analysis target=... references=... ref=truth.fa   minimap2+samtools alignment of inputs/outputs
+\tpython -m ntjoin_tpu_torch.cli quast target=... references=... ref=truth.fa      QUAST evaluation report
+\tpython -m ntjoin_tpu_torch.cli all target=... references=...                     assemble then analysis
+\tpython -m ntjoin_tpu_torch.cli version | check_install
+"""
 
 
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if not argv or argv[0] != "assemble":
-        print(USAGE, file=sys.stderr)
-        return 0 if argv[:1] in (["help"], ["-h"], ["--help"]) else 1
-    return assemble(argv[1:])
+    if not argv or argv[0] in ("help", "-h", "--help"):
+        print(HELP_TEXT.format(version=VERSION))
+        return 0
+    cmd, rest = argv[0], argv[1:]
+    if cmd == "version":
+        print(VERSION)
+        return 0
+    if cmd == "check_install":
+        return check_install()
+    if cmd == "assemble":
+        return assemble(rest)
+    if cmd == "analysis":
+        return analysis(rest)
+    if cmd == "quast":
+        return quast(rest)
+    if cmd == "all":
+        return assemble(rest) or analysis(rest)
+    print(
+        f"ERROR: unknown command {cmd!r} (try: assemble, analysis, quast, all, version, help)",
+        file=sys.stderr,
+    )
+    return 1
 
 
 if __name__ == "__main__":

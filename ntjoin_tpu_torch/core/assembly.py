@@ -93,7 +93,7 @@ class AssemblySketch:
         """Parse an indexlr-format minimizer TSV (``id\\thash:pos[:seq] ...``).
 
         ``repeat_filter`` optionally drops repeat minimizers by k-mer
-        sequence (e.g. a :class:`ntjoin_tpu.utils.bloom.BloomFilter` built
+        sequence (e.g. a :class:`ntjoin_tpu_torch.utils.bloom.BloomFilter` built
         from known repeats) — the reference's ``repeat_bf`` hook
         (``ntjoin_utils.py:182``).
         """

@@ -6,13 +6,19 @@ pair vote decides; '?' when undecidable.
 
 The Mann-Kendall implementation reproduces ``pymannkendall.original_test``
 numerics (S statistic, tie-corrected variance, z, two-sided p) without the
-dependency.  The JAX package's batched variant (``ops/mannkendall.py``) and
-the host tail that finishes it (``_mk_finish``) are not ported yet.
+dependency; the batched S for a path's runs runs as a torch op on the
+scaffolder's device (``ops/mannkendall.py``) and ``_mk_finish`` completes
+each run on the host.
 """
 from __future__ import annotations
 
 import math
 from typing import Sequence
+
+import numpy as np
+import torch
+
+from ntjoin_tpu_torch.ops.mannkendall import mk_s_batch
 
 
 def _norm_sf(x: float) -> float:
@@ -72,6 +78,65 @@ def mann_kendall(positions: Sequence[int], alpha: float = 0.05):
     return trend, h, p, z
 
 
+def _mk_finish(s: int, positions: Sequence[int], alpha: float = 0.05):
+    """Host float64 tail of the MK test from an exact integer S: tie
+    correction, variance, z, two-sided p — identical numerics to
+    ``mann_kendall`` (pymannkendall original_test)."""
+    n = len(positions)
+    _, t = np.unique(np.asarray(positions, dtype=np.int64), return_counts=True)
+    tie_term = int(np.sum(t * (t - 1) * (2 * t + 5)))
+    var_s = (n * (n - 1) * (2 * n + 5) - tie_term) / 18.0
+    if s > 0:
+        z = (s - 1) / math.sqrt(var_s)
+    elif s < 0:
+        z = (s + 1) / math.sqrt(var_s)
+    else:
+        z = 0.0
+    p = 2.0 * _norm_sf(abs(z))
+    h = p < alpha and z != 0.0
+    if h and z > 0:
+        trend = "increasing"
+    elif h and z < 0:
+        trend = "decreasing"
+    else:
+        trend = "no trend"
+    return trend, h, p, z
+
+
+def _mk_width(n: int) -> int:
+    """Padded row length of a run of n positions in ``_mk_s``: n rounded up
+    to a multiple of a sixteenth of the power of two above it (at least 8),
+    so that a row is padded by under an eighth and there are at most eight
+    widths an octave."""
+    g = 1 << max(0, n.bit_length() - 4)
+    return max(8, -(-n // g) * g)
+
+
+def _mk_batches(runs: list[Sequence[int]]):
+    """The runs grouped by padded length (``_mk_width``), so that a long run
+    does not pad the short ones: yields (the runs' indices, their positions
+    as an int64 (B, width) array padded with zeros, their lengths)."""
+    width = [_mk_width(len(r)) for r in runs]
+    for pad in sorted(set(width)):
+        idx = [j for j, wd in enumerate(width) if wd == pad]
+        pos = np.zeros((len(idx), pad), np.int64)
+        lengths = np.array([len(runs[j]) for j in idx], np.int64)
+        for row, j in enumerate(idx):
+            pos[row, : lengths[row]] = runs[j]
+        yield idx, pos, lengths
+
+
+def _mk_s(runs: list[Sequence[int]], device: torch.device) -> list[int]:
+    """Exact S of each run by ``mk_s_batch`` on ``device``, a batch for each
+    padded length."""
+    out = [0] * len(runs)
+    for idx, pos, lengths in _mk_batches(runs):
+        s = mk_s_batch(torch.from_numpy(pos).to(device), torch.from_numpy(lengths).to(device))
+        for j, v in zip(idx, s.tolist()):
+            out[j] = v
+    return out
+
+
 def _mk_orient(trend: str, h: bool, p: float) -> str:
     if h and p <= 0.05:
         return "+" if trend == "increasing" else "-"
@@ -103,13 +168,16 @@ def determine_orientation(
 
 
 def determine_orientations(
-    runs: Sequence[Sequence[int]], use_mkt: bool, m_percent: float
+    runs: Sequence[Sequence[int]], use_mkt: bool, m_percent: float,
+    device: str | torch.device = "cuda",
 ) -> list[str]:
     """Orientations for a batch of position runs (one path's contig runs).
 
     Identical verdicts to per-run ``determine_orientation``; with
-    ``use_mkt`` the ambiguous (non-monotonic) runs take the scalar host
-    Mann-Kendall test (the batched device S computation is not ported).
+    ``use_mkt`` every ambiguous (non-monotonic) run's S comes from the
+    batched torch op ``ops.mannkendall.mk_s_batch`` on ``device``
+    (integer-exact), and the float64 tail is finished on the host —
+    bit-identical p/z to the scalar test.  A failure on the device raises.
     """
     out = [""] * len(runs)
     ambiguous: list[int] = []
@@ -129,7 +197,8 @@ def determine_orientations(
             out[i] = determine_orientation(runs[i], use_mkt, m_percent)
         return out
 
-    for i in ambiguous:
-        trend, h, p, _ = mann_kendall(runs[i])
+    s_vals = _mk_s([runs[i] for i in ambiguous], torch.device(device))
+    for s, i in zip(s_vals, ambiguous):
+        trend, h, p, _ = _mk_finish(s, runs[i])
         out[i] = _mk_orient(trend, h, p)
     return out

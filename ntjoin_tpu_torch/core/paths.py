@@ -8,7 +8,7 @@ mark the behaviour each function reproduces.
 """
 from __future__ import annotations
 
-
+import torch
 
 from ntjoin_tpu_torch.core.assembly import SharedIndex
 from ntjoin_tpu_torch.core.orientation import determine_orientations
@@ -31,6 +31,7 @@ class PathBuilder:
         g_max: int,
         use_mkt: bool,
         m_percent: float,
+        device: str | torch.device = "cuda",
     ):
         self.shared = shared
         self.target_idx = target_idx
@@ -41,6 +42,7 @@ class PathBuilder:
         self.g_max = g_max
         self.use_mkt = use_mkt
         self.m_percent = m_percent
+        self.device = device  # of the Mann-Kendall op (use_mkt)
         self.contig_names = shared.assemblies[target_idx].contig_names
 
     # -- region coordinates (reference ntjoin_assemble.py:52-64) --
@@ -125,7 +127,7 @@ class PathBuilder:
             runs.append((cur_ctg, positions, first_mx, prev_mx))
 
         oris = determine_orientations(
-            [r[1] for r in runs], self.use_mkt, self.m_percent
+            [r[1] for r in runs], self.use_mkt, self.m_percent, self.device
         )
         out: list[PathNode] = []
         for (ctg_idx, positions, first_mx, last_mx), ori in zip(runs, oris):

@@ -59,7 +59,8 @@ _TSV_NAME_RE = re.compile(r"^(\S+)(.k\d+.w\d+)\.tsv")
 class Scaffolder:
     """One scaffolding run; ``device`` (the GPU unless the caller names
     another) holds the graph stages unless the caller asks for
-    ``config.index_backend == "host"``."""
+    ``config.index_backend == "host"``, and runs the Mann-Kendall op of
+    ``config.mkt``."""
 
     def __init__(self, config: ScaffoldConfig, sketch_cache: dict | None = None,
                  device: str | torch.device = "cuda"):
@@ -176,6 +177,7 @@ class Scaffolder:
             g_max=cfg.G,
             use_mkt=cfg.mkt,
             m_percent=cfg.m,
+            device=self.device,
         )
 
         # format + tally, then a relocation-merge pass (ref :704-719)

@@ -56,13 +56,10 @@ def read_fasta(path: str) -> list[FastaRecord]:
     gzip path.
     """
     if not path.endswith(".gz"):
-        try:
-            from ntjoin_tpu_torch.io.native import available, read_fasta_native
+        from ntjoin_tpu_torch.io.native import available, read_fasta_native
 
-            if available():
-                return read_fasta_native(path)
-        except Exception:  # pragma: no cover - fall back to python parsing
-            pass
+        if available():
+            return read_fasta_native(path)
     records: list[FastaRecord] = []
     name = None
     chunks: list[str] = []

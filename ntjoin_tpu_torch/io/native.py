@@ -22,6 +22,7 @@ import numpy as np
 
 _LIB = None
 _TRIED = False
+_ERROR: BaseException | None = None  # the failed build's exception, raised on every call
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_PATH = os.path.join(os.path.dirname(_PKG), "native", "ntjoin_native.cpp")
 LIB_PATH = os.path.join(_PKG, "_build", "libntjoin_native.so")
@@ -51,11 +52,20 @@ def build() -> bool:
 
 
 def _load():
-    global _LIB, _TRIED
+    """The loaded library, or None where :func:`build` says it cannot be
+    made.  A build that failed raises its error again on every call."""
+    global _LIB, _TRIED, _ERROR
+    if _ERROR is not None:
+        raise _ERROR
     if _TRIED:
         return _LIB
+    try:
+        made = build()
+    except Exception as exc:
+        _ERROR = exc
+        raise
     _TRIED = True
-    if not build():
+    if not made:
         return None
     lib = ctypes.CDLL(LIB_PATH)
     lib.nj_sketch.restype = ctypes.c_int64

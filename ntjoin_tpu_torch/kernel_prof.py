@@ -43,6 +43,7 @@ import torch
 
 from ntjoin_tpu_torch.constants import CODE_INVALID
 from ntjoin_tpu_torch.ops import sketch_cuda as sc
+from ntjoin_tpu_torch.ops import sketch_records as sr
 from ntjoin_tpu_torch.ops.membw import copy_words, copy_words_ref
 
 STAGES = ("link", "fused", "events", "membw", "ablate", "decomp", "multi", "general")
@@ -252,14 +253,14 @@ def main(argv: list[str] | None = None) -> int:
                 for s0 in rng.integers(0, size - 600, 100):
                     recs_codes[s0 : s0 + 500] = CODE_INVALID
             recs = [recs_codes[i : i + 2_000_000] for i in range(0, size, 2_000_000)]
-            sc.sketch_records_torch(recs, K, W, DEVICE)  # warm
+            sr.sketch_records_torch(recs, K, W, DEVICE)  # warm
             walls, splits = [], []
             for _ in range(3):
-                sc.STAGES.clear()
+                sr.STAGES.clear()
                 t0 = time.monotonic()
-                sc.sketch_records_torch(recs, K, W, DEVICE)
+                sr.sketch_records_torch(recs, K, W, DEVICE)
                 walls.append(time.monotonic() - t0)
-                splits.append(dict(sc.STAGES))
+                splits.append(dict(sr.STAGES))
             best = int(np.argmin(walls))
             emit(stage, {"records": len(recs), "wall_s": sorted(walls),
                          "gbases_s": size / walls[best] / 1e9, "stages_s": splits[best]})

@@ -3,8 +3,8 @@ PyTorch versions.  Port of ``ntjoin_tpu/ops/sketch_pallas.py``.
 
 Pipeline of one batch (``sketch_fused_torch``):
 
-1. Layout.  Records are joined on the host with k-1 invalid separator bases
-   into one int8 stream, padded with invalid bases, and copied to the device.
+1. Layout.  Records are joined on the host with k-1 (at least one) invalid
+   separator bases into one int8 stream, padded with invalid bases, and copied to the device.
    The stream is cut into C chunks of L k-mer starts; chunk c reads
    ``flat[c*L + r]`` for rows r in [0, L + w + k - 2), so each chunk owns its
    windows whole (the halo of w + k - 2 rows overlaps the next chunk).
@@ -32,6 +32,9 @@ Pipeline of one batch (``sketch_fused_torch``):
 
 Emissions come out in stream order; a chunk's first window repeats the
 previous chunk's last argmin at most once, and that duplicate is dropped.
+Steps 3-6 (``window_stream``) also serve the general path of records with
+N runs (``ops/sketch_general.py``), on the stream of their valid k-mers.
+``ops/sketch_records.py`` joins records into batches and picks the path.
 
 Hashes are int64 tensors holding the uint64 bits (see ``u64``).  Each kernel
 wrapper runs the plain version for a CPU tensor and launches its kernel for a
@@ -53,29 +56,23 @@ import numpy as np
 import torch
 
 from ntjoin_tpu_torch.constants import CODE_INVALID, SEEDS, SROL_PERIOD
-from ntjoin_tpu_torch.io import native
 from ntjoin_tpu_torch.ops import u64
-from ntjoin_tpu_torch.ops.nthash_np import Sketch, _window_lexmin, canonical_hashes, sketch_codes
-from ntjoin_tpu_torch.ops.nthash_np import derive_hash as derive_hash_np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 LIB_PATH = os.path.join(_PKG, "_build", "libntjoin_cuda.so")
 
 # Kernel launches by op, calls of each op's plain version, records the host
-# sketcher took, and runs of the exact window path.  Plain counters so that
-# a run can show which code served it; ``reset_counts`` zeroes them.  The
-# sketch runs ``hash``, ``flags``, one of the two window/emission routes and
-# ``window``; the copy (``ops/membw.py``) serves the profiler.
+# sketcher took whole (``host_records``; of them, those too long for the
+# device, ``host_records_size``), records and batches of the general path
+# (``ops/sketch_records.py``), and runs of the exact window path.  Plain
+# counters so that a run can show which code served it; ``reset_counts``
+# zeroes them.  The sketch runs ``hash``, ``flags``, one of the two
+# window/emission routes and ``window``; the copy (``ops/membw.py``) serves
+# the profiler.
 KERNELS = ("hash", "flags", "window_emit", "window_emit_gmem", "window", "copy")
 _OPS = ("hash", "flags", "window_emit", "window", "copy")  # each has one plain version
 COUNTS: dict[str, int] = {}
-# Host-clock seconds of ``sketch_records_torch`` by stage, accumulated over
-# calls (the counterpart of ``sketch_pallas._STAGES``): plan (N
-# segmentation and batching), pack (pinned buffer), device (upload through
-# the sync on the result), split (per-record split) and patches (junction
-# patches and their merge).  Callers clear it.
-STAGES: dict[str, float] = {}
 
 
 def reset_counts() -> None:
@@ -85,21 +82,17 @@ def reset_counts() -> None:
     for name in _OPS:
         COUNTS[name + "_plain"] = 0
     COUNTS["host_records"] = 0
+    COUNTS["host_records_size"] = 0
+    COUNTS["general_records"] = 0
+    COUNTS["general_batches"] = 0
     COUNTS["exact_runs"] = 0
 
 
 reset_counts()
 
-# Per-batch bases: the device holds ~40 B per base of intermediates on the
-# exact path, so 2^28 bases stay near 10 GB.  A larger record gets a batch
-# of its own.
-BATCH_BASES = 1 << 28
 # Chunks: at least 4 halos of windows per chunk (halo work under 25%), and no
 # more chunks than the card can use threads for.
 _MAX_CHUNKS = 1 << 16
-# Junction work of an N-containing record beyond max(this, n // 5) windows
-# sends the record to the host sketcher (see sketch_records_torch).
-_PATCH_WORK_MIN = 1 << 20
 
 
 # -- seed tables and the JAX package's chunk layout ----------------------------
@@ -208,13 +201,6 @@ def _lib():
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
-
-
-def _stage(name: str, t0: float) -> float:
-    """Add the seconds since t0 to ``STAGES[name]``; returns the clock."""
-    t = time.monotonic()
-    STAGES[name] = STAGES.get(name, 0.0) + (t - t0)
-    return t
 
 
 def _launched(err: int, name: str) -> None:
@@ -694,19 +680,18 @@ def sketch_fused_torch(flat: torch.Tensor, n: int, k: int, w: int,
     ``layout(n, k, w)``).
 
     Returns (positions, canonical hashes) of every emission, int64, in
-    stream order with chunk-seam duplicates dropped.  Chunks with more
-    emissions than the capacity take the exact path, counted in
-    ``COUNTS["exact_runs"]`` once per call.  ``slot_cap`` overrides the
-    per-chunk emission capacity; ``plain`` runs the plain versions of the ops
-    even on a CUDA device.
+    stream order with chunk-seam duplicates dropped (``window_stream``).
+    ``slot_cap`` overrides the per-chunk emission capacity; ``plain`` runs
+    the plain versions of the ops even on a CUDA device.
 
     ``stop_after`` cuts the pipeline short for the profiler, as
     ``sketch_pallas._sketch_fused``'s hook does: ``"hash"`` returns op 1's
     (hashes, valid flags), ``"window"`` op 2's (positions, hashes, counts)
     before compaction.
     """
+    if stop_after not in (None, "hash", "window"):
+        raise ValueError(f"stop_after={stop_after!r}: want None, 'hash' or 'window'")
     C, L = layout(n, k, w)
-    off = k - 1
     rows = L + w + k - 2
     if plain:
         h, val = hash_chunked_ref(_chunk_view(flat, L, C, rows), k)
@@ -714,14 +699,25 @@ def sketch_fused_torch(flat: torch.Tensor, n: int, k: int, w: int,
         h, val = hash_chunked(flat, L, C, rows, k)
     if stop_after == "hash":
         return h, val
+    return window_stream(h, val, L, w, k - 1, slot_cap, plain, lists=stop_after == "window")
+
+
+def window_stream(h: torch.Tensor, val: torch.Tensor, L: int, w: int, off: int,
+                  slot_cap: int | None = None, plain: bool = False,
+                  lists: bool = False) -> tuple[torch.Tensor, ...]:
+    """The window half of a sketch, from a chunked (rows, C) layout of
+    hashes and k-mer valid flags whose element s of chunk c sits at row
+    off + s (rows >= off + L + w - 1): the flag op, the window/emission op,
+    compaction, and the exact op for the chunks whose list overflowed,
+    counted in ``COUNTS["exact_runs"]`` once per call.  Returns the
+    (stream positions c*L + s, canonical hashes) of every emission, int64,
+    in stream order with chunk-seam duplicates dropped; with ``lists`` the
+    window/emission op's (positions, hashes, counts) before compaction."""
     flags = (window_flags_ref if plain else window_flags)(val, L, w, off)
-    del val
     cap = _slot_cap(L, w) if slot_cap is None else slot_cap
     spos, shsh, count = (window_emit_ref if plain else window_emit)(h, flags, L, w, off, cap)
-    if stop_after == "window":
+    if lists:
         return spos, shsh, count
-    if stop_after is not None:
-        raise ValueError(f"stop_after={stop_after!r}: want None, 'hash' or 'window'")
     over = count > cap
     count = count.masked_fill(over, 0)
     n_over, total = torch.stack([over.sum(), count.sum()]).tolist()
@@ -737,219 +733,3 @@ def sketch_fused_torch(flat: torch.Tensor, n: int, k: int, w: int,
     keep = torch.ones_like(pos, dtype=torch.bool)
     keep[1:] = pos[1:] != pos[:-1]
     return pos[keep], canon[keep]
-
-
-# -- N segmentation (host) ------------------------------------------------------------
-#
-# The sketch is the set of distinct window argmins.  A record with interior
-# N runs splits into windows inside one long clean segment (sketched on the
-# device, the segments as pseudo-records) and windows across segment
-# junctions, at most ~2(w-1) per junction, computed here from the junction
-# neighbourhoods' hashes.  Their union, merged by position, is exact.
-
-
-def _invalid_runs(codes: np.ndarray) -> list[tuple[int, int]]:
-    """(start, end) runs of invalid bases."""
-    inv = np.asarray(codes) >= CODE_INVALID
-    if not inv.any():
-        return []
-    d = np.diff(inv.astype(np.int8))
-    starts = np.flatnonzero(d == 1) + 1
-    ends = np.flatnonzero(d == -1) + 1
-    if inv[0]:
-        starts = np.concatenate([[0], starts])
-    if inv[-1]:
-        ends = np.concatenate([ends, [inv.shape[0]]])
-    return [(int(s), int(e)) for s, e in zip(starts, ends)]
-
-
-def _segments_of(n: int, runs: list[tuple[int, int]]) -> list[tuple[int, int]]:
-    """Maximal valid-base intervals: the complement of the invalid runs."""
-    segs = []
-    prev = 0
-    for s, e in runs:
-        if s > prev:
-            segs.append((prev, s))
-        prev = e
-    if prev < n:
-        segs.append((prev, n))
-    return segs
-
-
-def _patch_plan(n: int, runs: list[tuple[int, int]], k: int, w: int):
-    """(segments, k-mers per segment, their stream offsets, patch window
-    intervals, patch work).  Stream rank = index among the valid k-mers; a
-    window is device-covered iff it lies inside one segment of >= w+k-1
-    bases, and the patch intervals are the rest of [0, n_stream - w]."""
-    segs = _segments_of(n, runs)
-    nks = [max(0, (e - s) - k + 1) for s, e in segs]
-    offs = np.concatenate([[0], np.cumsum(nks)]).astype(np.int64)
-    n_stream = int(offs[-1])
-    if n_stream < w:
-        return segs, nks, offs, [], 0
-    inside = [
-        (int(offs[i]), int(offs[i]) + nks[i] - w)
-        for i, (s, e) in enumerate(segs)
-        if (e - s) >= (w + k - 1)
-    ]
-    patch_ivs = []
-    cur = 0
-    for a, b in inside:  # disjoint, ascending
-        if a > cur:
-            patch_ivs.append((cur, a - 1))
-        cur = max(cur, b + 1)
-    if cur <= n_stream - w:
-        patch_ivs.append((cur, n_stream - w))
-    work = sum(b - a + w for a, b in patch_ivs)
-    return segs, nks, offs, patch_ivs, work
-
-
-def _stream_slice(codes, k, segs, nks, offs, lo: int, hi: int):
-    """Canonical hashes and positions of the valid k-mers of ranks [lo, hi]."""
-    hs, ps = [], []
-    for i, (s, _) in enumerate(segs):
-        a = max(lo, int(offs[i]))
-        b = min(hi, int(offs[i]) + nks[i] - 1)
-        if nks[i] == 0 or a > b:
-            continue
-        la = a - int(offs[i])
-        canon, _ = canonical_hashes(np.asarray(codes[s + la : s + (b - int(offs[i])) + k]), k)
-        hs.append(canon)
-        ps.append(np.arange(s + la, s + la + canon.shape[0], dtype=np.int64))
-    if not hs:
-        return np.empty(0, np.uint64), np.empty(0, np.int64)
-    return np.concatenate(hs), np.concatenate(ps)
-
-
-def _patch_emissions(codes, k: int, w: int, segs, nks, offs, patch_ivs):
-    """Distinct argmins (positions, canonical hashes) of the patch windows."""
-    out_pos, out_canon = [], []
-    for a, b in patch_ivs:
-        h, pos = _stream_slice(codes, k, segs, nks, offs, a, b + w - 1)
-        arg = np.unique(_window_lexmin(h, w))
-        out_pos.append(pos[arg])
-        out_canon.append(h[arg])
-    if not out_pos:
-        return np.empty(0, np.int64), np.empty(0, np.uint64)
-    return np.concatenate(out_pos), np.concatenate(out_canon)
-
-
-def _host_sketch(codes: np.ndarray, k: int, w: int) -> Sketch:
-    if native.available():
-        return native.sketch_codes_native(codes, k, w)
-    return sketch_codes(codes, k, w)
-
-
-_EMPTY = Sketch(np.empty(0, dtype=np.int64), np.empty(0, dtype=np.uint64))
-
-
-# -- batched multi-record entry --------------------------------------------------------
-
-
-def _sketch_batch(batch: list[np.ndarray], k: int, w: int, device: torch.device,
-                  slot_cap: int | None, plain: bool) -> list[Sketch]:
-    """Join the records with k-1 invalid bases, sketch the stream on the
-    device and split the emissions per record."""
-    t0 = time.monotonic()
-    lens = np.array([c.shape[0] for c in batch], dtype=np.int64)
-    offsets = np.concatenate([[0], np.cumsum(lens + k - 1)[:-1]]).astype(np.int64)
-    total = int(offsets[-1] + lens[-1] + k - 1)
-    if total - k + 1 < w:
-        return [_EMPTY] * len(batch)
-    C, L = layout(total, k, w)
-    host = torch.full((C * L + w + k - 2,), CODE_INVALID, dtype=torch.int8,
-                      pin_memory=device.type == "cuda")
-    hv = host.numpy()
-    for o, c in zip(offsets, batch):
-        hv[o : o + c.shape[0]] = c
-    t0 = _stage("pack", t0)
-    flat = host.to(device, non_blocking=True)
-    pos, canon = sketch_fused_torch(flat, total, k, w, slot_cap, plain)
-    pos_np = pos.cpu().numpy()
-    hashes = u64.as_u64(u64.derive_hash(canon, k))
-    t0 = _stage("device", t0)
-    # emissions ascend and records are disjoint ascending ranges
-    bounds = np.append(np.searchsorted(pos_np, offsets), pos_np.shape[0])
-    out = [
-        Sketch(positions=pos_np[a:b] - o, hashes=hashes[a:b]) if b > a else _EMPTY
-        for o, a, b in zip(offsets, bounds[:-1], bounds[1:])
-    ]
-    _stage("split", t0)
-    return out
-
-
-def sketch_records_torch(codes_list: list[np.ndarray], k: int, w: int,
-                         device: str | torch.device = "cuda", *,
-                         slot_cap: int | None = None, plain: bool = False) -> list[Sketch]:
-    """Minimizer sketches of many records, bit-identical to
-    ``ops.nthash_np.sketch_codes`` on each.
-
-    N-free records go to the device whole; a record with N runs goes as its
-    long clean segments, and the windows across its junctions are sketched
-    on the host (``_patch_emissions``).  A record whose junction work would
-    rival its length is sketched whole on the host and counted in
-    ``COUNTS["host_records"]``.  Records are packed into device batches of
-    about ``BATCH_BASES`` bases.  ``slot_cap`` and ``plain`` pass to
-    ``sketch_fused_torch``.
-    """
-    t0 = time.monotonic()
-    device = torch.device(device)
-    out: list[Sketch] = [_EMPTY] * len(codes_list)
-    entries: list[tuple[int, int, np.ndarray]] = []  # (record, base, codes)
-    patch_plans = {}
-    for i, c in enumerate(codes_list):
-        c = np.asarray(c)
-        runs = _invalid_runs(c)
-        if not runs:
-            entries.append((i, 0, c))
-            continue
-        n = int(c.shape[0])
-        segs, nks, offs, patch_ivs, work = _patch_plan(n, runs, k, w)
-        if work > max(_PATCH_WORK_MIN, n // 5):
-            out[i] = _host_sketch(c, k, w)
-            COUNTS["host_records"] += 1
-            continue
-        entries.extend((i, s, c[s:e]) for s, e in segs if (e - s) >= (w + k - 1))
-        patch_plans[i] = (c, segs, nks, offs, patch_ivs)
-
-    batches: list[list[tuple[int, int, np.ndarray]]] = []
-    acc = 0
-    for ent in entries:
-        sz = int(ent[2].shape[0]) + k - 1
-        if not batches or acc + sz > BATCH_BASES:
-            batches.append([])
-            acc = 0
-        batches[-1].append(ent)
-        acc += sz
-    _stage("plan", t0)
-    pieces: dict[int, list[tuple[int, Sketch]]] = {}
-    for b in batches:
-        sketches = _sketch_batch([e[2] for e in b], k, w, device, slot_cap, plain)
-        for (i, base, _), sk in zip(b, sketches):
-            pieces.setdefault(i, []).append((base, sk))
-
-    t0 = time.monotonic()
-    for i, got in pieces.items():
-        if i not in patch_plans:
-            out[i] = got[0][1]
-    t0 = _stage("split", t0)
-    for i, (c, segs, nks, offs, patch_ivs) in patch_plans.items():
-        ppos, pcanon = _patch_emissions(c, k, w, segs, nks, offs, patch_ivs)
-        parts = pieces.get(i, [])
-        pos = np.concatenate([base + sk.positions for base, sk in parts] + [ppos])
-        hsh = np.concatenate([sk.hashes for _, sk in parts] + [derive_hash_np(pcanon, k)])
-        if pos.shape[0] == 0:
-            continue
-        order = np.argsort(pos, kind="stable")
-        pos, hsh = pos[order], hsh[order]
-        keep = np.ones(pos.shape[0], dtype=bool)
-        keep[1:] = pos[1:] != pos[:-1]  # device/patch overlap
-        out[i] = Sketch(positions=pos[keep], hashes=hsh[keep])
-    _stage("patches", t0)
-    return out
-
-
-def sketch_codes_torch(codes: np.ndarray, k: int, w: int,
-                       device: str | torch.device = "cuda", **kw) -> Sketch:
-    """Sketch of one record: ``sketch_records_torch([codes])[0]``."""
-    return sketch_records_torch([codes], k, w, device, **kw)[0]

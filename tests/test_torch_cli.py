@@ -1,5 +1,7 @@
 """The port's command line against the JAX package's: byte-equal artifacts
-on synthetic fixtures, its refusals, and the chip smoke script without a
+on synthetic fixtures (``mkt=True`` among them), the other commands
+(``help``, ``version``, ``check_install``, ``analysis``, ``quast``,
+``all``) and ``run.py``, its refusals, and the chip smoke script without a
 card."""
 import json
 import os
@@ -93,6 +95,56 @@ def test_port_cli_matches_jax_cli(tmp_path, fixture, prefix, extra, index_backen
                 assert (port / got).read_text() == fh.read(), want
 
 
+def _swapped_blocks(d):
+    """12 pieces of a 120 kbp genome, every third with two 2 kbp blocks
+    swapped (minimizer positions not monotonic: Mann-Kendall decides), every
+    fourth reversed."""
+    rng = np.random.default_rng(4242)
+    genome = "".join("ACGT"[i] for i in rng.integers(0, 4, size=120_000))
+    (d / "ref.fa").write_text(f">genome\n{genome}\n")
+    pieces = []
+    for i, b in enumerate(range(0, 120_000, 10_000)):
+        seg = genome[b : b + 10_000]
+        if i % 3 == 1:
+            seg = seg[:3000] + seg[5000:7000] + seg[3000:5000] + seg[7000:]
+        if i % 4 == 3:
+            seg = seg[::-1].translate(_RC)
+        pieces.append(f">piece{i}\n{seg}\n")
+    (d / "target.fa").write_text("".join(pieces))
+
+
+def _counts(stdout: str, key: str) -> dict:
+    return json.loads(next(ln for ln in stdout.splitlines()
+                           if ln.startswith(key + "\t")).split("\t", 1)[1])
+
+
+@pytest.mark.parametrize("words", [["backend=torch"], ["backend=native", "index_backend=host"]])
+@pytest.mark.parametrize("fixture,extra", [
+    (_many_contigs, ["w=250"]),
+    (_more_sequences, ["w=250", "agp=True"]),
+    (_swapped_blocks, ["w=100"]),
+])
+def test_assemble_mkt_matches_jax_cli(tmp_path, fixture, extra, words):
+    """``mkt=True``: every artifact byte-equal to ``ntjoin_tpu.cli``'s, the
+    Mann-Kendall op on the CPU (``mk_counts``) wherever a run is not
+    monotonic."""
+    port, ref = tmp_path / "port", tmp_path / "ref"
+    for d in (port, ref):
+        d.mkdir()
+        fixture(d)
+    args = ["assemble", "-B", "target=target.fa", "references=ref.fa", "reference_weights=2",
+            "k=32", "n=2", "mkt=True", "prefix=mk", *extra]
+    res = _run_cli(["-c", _PORT], args + words + ["time=True"], port)
+    _run_cli(["-m", "ntjoin_tpu.cli"], args + ["backend=numpy", "index_backend=host"], ref)
+    counts = _counts(res.stdout, "mk_counts")
+    if fixture is _swapped_blocks:
+        assert counts["mk_runs"] >= 4 and counts["device"] == "cpu", counts
+    made = sorted(p.name for p in ref.iterdir())
+    assert "mk.path" in made and len(made) >= 11
+    for name in made:
+        assert (port / name).read_bytes() == (ref / name).read_bytes(), name
+
+
 def _run_cli(module_or_code: list[str], args: list[str], cwd) -> subprocess.CompletedProcess:
     res = subprocess.run([sys.executable, *module_or_code, *args], cwd=cwd,
                          env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True)
@@ -157,7 +209,6 @@ def test_own_cli_helpers_match_jax_cli(tmp_path):
 
 
 @pytest.mark.parametrize("word,item", [
-    ("mkt=True", "ROADMAP Queue A item 9"),
     ("backend=pallas", "ROADMAP Queue A items 2-3"),
     ("backend=jax", "ROADMAP Queue A items 2-3"),
     ("n_procs=2", "ROADMAP Queue A item 12"),
@@ -170,6 +221,98 @@ def test_refusals(tmp_path, capsys, monkeypatch, word, item):
     assert rc != 0
     assert err.startswith("ERROR: ") and item in err and err.count("\n") == 1
     assert not list(tmp_path.iterdir())
+
+
+def _help_keys(text: str) -> list[str]:
+    """The option keys of a help text: first words of its tab-set lines."""
+    return [ln.split("\t")[0] for ln in text.splitlines()
+            if "\t" in ln and ln.split("\t")[0] and " " not in ln.split("\t")[0]]
+
+
+@pytest.mark.parametrize("word", ["help", "-h", "--help", None])
+def test_help_prints_the_manual(capsys, word):
+    from ntjoin_tpu import cli as jax_cli
+
+    assert cli.main([word] if word else []) == 0
+    out = capsys.readouterr().out
+    assert cli.VERSION in out
+    for backend in ("cuda", "torch", "native", "numpy"):
+        assert backend in out.split("\nbackend\t", 1)[1].splitlines()[0]
+    assert "pallas" not in out and "jax" not in out
+    keys = _help_keys(out)
+    assert [k for k in keys if k != "device"] == _help_keys(jax_cli.HELP_TEXT)
+    assert "device" in keys and len(keys) == 30
+
+
+def test_version_and_check_install(capsys):
+    from ntjoin_tpu import cli as jax_cli
+
+    assert cli.main(["version"]) == 0
+    assert capsys.readouterr().out.strip() == jax_cli.VERSION == cli.VERSION
+    res = subprocess.run([sys.executable, "-c", _PORT, "check_install"], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES=""),
+                         capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr
+    assert "core sketch: OK" in res.stdout
+    assert "CUDA device: none" in res.stdout and "native library: " in res.stdout
+
+
+def test_unknown_command(capsys):
+    assert cli.main(["frobnicate"]) == 1
+    assert "unknown command 'frobnicate'" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("cmd", ["analysis", "quast", "all"])
+def test_missing_tools_as_the_jax_cli(tmp_path, cmd):
+    """Without minimap2, samtools and QUAST on PATH both command lines exit
+    1 with the same MissingToolError message (``all`` assembles first)."""
+    outs = []
+    for pkg, code in (("jax", ["-m", "ntjoin_tpu.cli"]), ("port", ["-c", _PORT])):
+        d = tmp_path / pkg
+        d.mkdir()
+        _many_contigs(d)
+        words = [cmd, *_COMMON, "ref=ref.fa", "prefix=p"]
+        words += ["backend=numpy", "index_backend=host"] if pkg == "jax" else ["backend=torch"]
+        res = subprocess.run([sys.executable, *code, *words], cwd=d,
+                             env=dict(os.environ, PYTHONPATH=REPO, PATH="/usr/bin:/bin"),
+                             capture_output=True, text=True)
+        outs.append((res.returncode, res.stderr.strip().splitlines()[-1]))
+    tool = "quast" if cmd == "quast" else "minimap2"
+    assert outs[0] == outs[1] == (1, f"ERROR: {tool} not found on PATH — the analysis stage "
+                                     "wraps external alignment/evaluation tools "
+                                     "(minimap2/samtools/quast)")
+    if cmd == "all":
+        assert (tmp_path / "port" / "p.path").read_bytes() == (tmp_path / "jax" / "p.path").read_bytes()
+
+
+def test_run_matches_jax_run(tmp_path):
+    """``python -m ntjoin_tpu_torch.run`` on the TSVs of a fixture: every
+    artifact byte-equal to ``ntjoin_tpu.run``'s, with the device index on
+    the CPU and with the host layers."""
+    sk = tmp_path / "sketch"
+    sk.mkdir()
+    _swapped_blocks(sk)
+    _run_cli(["-m", "ntjoin_tpu.cli"], ["assemble", "-B", "target=target.fa", "references=ref.fa",
+                                        "reference_weights=2", "k=32", "w=100", "n=2",
+                                        "backend=numpy"], sk)
+    inputs = ["ref.fa", "target.fa", "ref.fa.k32.w100.tsv", "target.fa.k32.w100.tsv"]
+    flags = ["ref.fa.k32.w100.tsv", "-s", "target.fa.k32.w100.tsv", "-r", "2", "-k", "32",
+             "-n", "2", "-p", "run", "--agp", "--mkt"]
+    runs = {"jax": ["-m", "ntjoin_tpu.run"],
+            "device": ["-m", "ntjoin_tpu_torch.run", "--device", "cpu"],
+            "host": ["-m", "ntjoin_tpu_torch.run", "--device", "cpu", "--index_backend", "host"]}
+    for name, cmd in runs.items():
+        d = tmp_path / name
+        d.mkdir()
+        for f in inputs:
+            (d / f).write_bytes((sk / f).read_bytes())
+        _run_cli(cmd, flags, d)
+    made = sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert "run.path" in made and "run.agp" in made
+    for name in ("device", "host"):
+        assert sorted(p.name for p in (tmp_path / name).iterdir()) == made
+        for f in made:
+            assert (tmp_path / name / f).read_bytes() == (tmp_path / "jax" / f).read_bytes(), f
 
 
 def test_cuda_backend_needs_a_device(tmp_path, capsys, monkeypatch):

@@ -16,6 +16,7 @@ import importlib
 import io
 import os
 import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -326,6 +327,38 @@ def test_native_build_failure_is_an_error(tmp_path, monkeypatch):
     assert port.build() is False
 
 
+def test_native_build_failure_raises_on_every_call(scenario, tmp_path, monkeypatch):
+    """A g++ that exits 1: ``read_fasta``, ``write_fai`` and the native
+    sketch backend raise the build's error, and raise it again on the next
+    call (nothing falls back to the Python paths)."""
+    port = mod(PORT, "io.native")
+    monkeypatch.setattr(port, "LIB_PATH", str(tmp_path / "_build" / "libntjoin_native.so"))
+    monkeypatch.setattr(port, "_LIB", None)
+    monkeypatch.setattr(port, "_TRIED", False)
+    monkeypatch.setattr(port, "_ERROR", None)
+    monkeypatch.setattr(port.shutil, "which", lambda name: "/usr/bin/" + name)
+    calls = []
+    run = subprocess.run
+
+    def failing_gxx(cmd, **kw):
+        if not str(cmd[0]).endswith("g++"):
+            return run(cmd, **kw)
+        calls.append(cmd[0])
+        return subprocess.CompletedProcess(cmd, 1, "", "fake compiler error: no luck")
+
+    monkeypatch.setattr(port.subprocess, "run", failing_gxx)
+    cli = mod(PORT, "cli")
+    fa = str(scenario / "ref1.fa")
+    for call in (lambda: mod(PORT, "io.fasta").read_fasta(fa),
+                 lambda: mod(PORT, "io.fasta").write_fai(fa, str(tmp_path / "x.fai")),
+                 lambda: cli._sketcher("native", "cpu")):
+        for _ in range(2):
+            with pytest.raises(RuntimeError, match="(?s)g\\+\\+ failed.*fake compiler error"):
+                call()
+    assert calls == ["/usr/bin/g++"]  # built once, its error kept
+    assert not (tmp_path / "x.fai").exists()
+
+
 @pytest.mark.parametrize("k,w,n", [(32, 250, 50_000), (15, 10, 3_000), (32, 1000, 900)])
 def test_native_sketchers(k, w, n):
     if not mod(PORT, "io.native").available() or not mod(JAX, "io.native").available():
@@ -584,6 +617,36 @@ def test_circular_component_and_subgraph_view():
         got.append(norm([ring.shape[0], degs, srcs, list(ends), view.num_edges,
                          view.shortest_path(*ends), graph_arrays(g)]))
     assert got[0] == got[1]
+
+
+# -- utils: Bloom filter -----------------------------------------------------------------
+
+
+def test_bloom_filter(tmp_path):
+    """Insert, query, save and load: the same bits and verdicts as the
+    original, and each package loads the other's file."""
+    kmers = ["ACGTACGTACGTACGTA", "TTTTGGGGCCCCAAAAT", "ACGTTGCA" * 2 + "G", b"GATTACAGATTACAGAT"]
+    probes = kmers + ["CCCCCCCCCCCCCCCCC", "ACGTACGTACGTACGTT"]
+    filters = []
+    for pkg in PKGS:
+        bf = mod(pkg, "utils.bloom").BloomFilter(size_bits=4099, num_hashes=3)
+        for km in kmers:
+            bf.insert(km)
+        filters.append(bf)
+        bf.save(str(tmp_path / f"{pkg}.bf"))
+    assert np.array_equal(filters[0].bits, filters[1].bits) and filters[0].bits.any()
+    want = [filters[0].contains(p) for p in probes]
+    assert want[:4] == [True] * 4
+    assert [filters[1].contains(p) for p in probes] == want
+    for pkg in PKGS:
+        for src in PKGS:
+            bf = mod(pkg, "utils.bloom").BloomFilter.load(str(tmp_path / f"{src}.bf"))
+            assert (bf.size, bf.num_hashes) == (4099, 3)
+            assert np.array_equal(bf.bits, filters[0].bits)
+            assert [bf.contains(p) for p in probes] == want
+    (tmp_path / "bad.bf").write_bytes(b"not a filter")
+    with pytest.raises(ValueError, match="not an ntjoin-tpu Bloom filter"):
+        mod(PORT, "utils.bloom").BloomFilter.load(str(tmp_path / "bad.bf"))
 
 
 # -- core: orientation, paths, overlaps ------------------------------------------------------

@@ -36,7 +36,8 @@ def test_every_copied_layer_is_listed():
                  "ops.device_paths", "ops.u64", "utils.atomic", "utils.timers", "io.native",
                  "io.fasta", "core.pathnode", "core.config", "core.assembly",
                  "core.orientation", "core.overlap_region", "core.overlap_trim", "core.paths",
-                 "core.scaffolder", "graph.mingraph", "graph.paths", "emit.writers"):
+                 "core.scaffolder", "graph.mingraph", "graph.paths", "emit.writers",
+                 "ops.mannkendall", "ops.sketch_general", "utils.bloom", "analysis", "run"):
         assert f"ntjoin_tpu_torch.{name}" in MODULES, name
 
 

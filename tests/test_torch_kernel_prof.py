@@ -15,6 +15,7 @@ from ntjoin_tpu.ops.nthash_np import derive_hash, sketch_codes
 from ntjoin_tpu_torch import kernel_prof
 from ntjoin_tpu_torch.ops import membw
 from ntjoin_tpu_torch.ops import sketch_cuda as sc
+from ntjoin_tpu_torch.ops import sketch_records as sr
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -98,10 +99,10 @@ def test_stages_filled_by_a_cpu_sketch():
     rng = np.random.default_rng(8)
     recs = [rng.integers(0, 4, size=n).astype(np.uint8) for n in (9000, 4000, 30)]
     recs[0][3000:3200] = 4
-    sc.STAGES.clear()
-    got = sc.sketch_records_torch(recs, 15, 10, "cpu")
-    assert set(sc.STAGES) == {"plan", "pack", "device", "split", "patches"}
-    assert all(v >= 0 for v in sc.STAGES.values())
+    sr.STAGES.clear()
+    got = sr.sketch_records_torch(recs, 15, 10, "cpu")
+    assert set(sr.STAGES) == {"plan", "pack", "device", "split"}
+    assert all(v >= 0 for v in sr.STAGES.values())
     for g, c in zip(got, recs):
         assert g.positions.tolist() == sketch_codes(c, 15, 10).positions.tolist()
 

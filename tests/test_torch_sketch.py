@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 
 import ntjoin_tpu_torch.ops.sketch_cuda as sc
+import ntjoin_tpu_torch.ops.sketch_records as sr
 from ntjoin_tpu.ops.nthash_np import sketch_codes
 from ntjoin_tpu.ops.sketch_pallas import sketch_records_pallas
 
@@ -44,7 +45,7 @@ def _assert_same(got, want):
 def test_records_match_pallas_and_oracle(records):
     recs = records()
     sc.reset_counts()
-    got = sc.sketch_records_torch(recs, 15, 10, "cpu")
+    got = sr.sketch_records_torch(recs, 15, 10, "cpu")
     assert sc.COUNTS["hash_plain"] >= 1 and sc.COUNTS["window_emit_plain"] >= 1
     assert sc.COUNTS["hash"] == sc.COUNTS["window_emit"] == sc.COUNTS["window"] == 0
     assert sc.COUNTS["host_records"] == 0
@@ -53,16 +54,17 @@ def test_records_match_pallas_and_oracle(records):
 
 
 def test_pathological_n_density_goes_to_host(monkeypatch):
-    """An N every 25 bases leaves only short segments: junction work past
-    the guard sends the record whole to the host sketcher, counted."""
+    """An N every 25 bases leaves only short segments, which once sent the
+    record to the host sketcher; now, as every record with N runs, it goes
+    whole to the general device path (counted); the host takes nothing."""
     rng = np.random.default_rng(47)
     codes = rng.integers(0, 4, size=60_000).astype(np.uint8)
     codes[::25] = 4
     clean = rng.integers(0, 4, size=20_000).astype(np.uint8)
-    monkeypatch.setattr(sc, "_PATCH_WORK_MIN", 1000)  # the guard at test scale
     sc.reset_counts()
-    got = sc.sketch_records_torch([codes, clean], 15, 16, "cpu")
-    assert sc.COUNTS["host_records"] == 1
+    got = sr.sketch_records_torch([codes, clean], 15, 16, "cpu")
+    assert sc.COUNTS["general_records"] == 1 and sc.COUNTS["general_batches"] == 1
+    assert sc.COUNTS["host_records"] == 0
     _assert_same(got, [sketch_codes(codes, 15, 16), sketch_codes(clean, 15, 16)])
 
 
@@ -72,9 +74,9 @@ def test_batches_split_records(monkeypatch):
     rng = np.random.default_rng(60)
     recs = [rng.integers(0, 4, size=ln).astype(np.uint8) for ln in [9000, 8000, 7000, 6000]]
     recs[2][3000:3100] = 4
-    monkeypatch.setattr(sc, "BATCH_BASES", 16_000)
+    monkeypatch.setattr(sr, "BATCH_BASES", 16_000)
     sc.reset_counts()
-    got = sc.sketch_records_torch(recs, 15, 10, "cpu")
+    got = sr.sketch_records_torch(recs, 15, 10, "cpu")
     assert sc.COUNTS["hash_plain"] >= 3
     _assert_same(got, [sketch_codes(c, 15, 10) for c in recs])
 
@@ -83,7 +85,7 @@ def test_batches_split_records(monkeypatch):
 def test_short_inputs(n):
     """Records shorter than k or with fewer than w k-mers emit nothing."""
     codes = np.random.default_rng(n).integers(0, 4, size=n).astype(np.uint8)
-    got = sc.sketch_codes_torch(codes, 15, 10, "cpu")
+    got = sr.sketch_codes_torch(codes, 15, 10, "cpu")
     want = sketch_codes(codes, 15, 10)
     assert got.positions.tolist() == want.positions.tolist()
     assert got.hashes.tolist() == want.hashes.tolist()

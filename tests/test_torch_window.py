@@ -12,6 +12,7 @@ from ntjoin_tpu.ops.sketch_pallas import (
     _CHUNKS, _LANE, _ROW_BLOCK, _SUB, _ceil_to, _expand_runs, _sketch_fused, _window_chunked,
 )
 from ntjoin_tpu_torch.ops import sketch_cuda as sc
+from ntjoin_tpu_torch.ops import sketch_records as sr
 from ntjoin_tpu_torch.ops import u64
 
 # few distinct values (many ties), some with the top bit set (unsigned order)
@@ -143,7 +144,7 @@ def test_repeat_runs_take_exact_path():
     assert pos.tolist() == ref.positions.tolist()
     # runs inside and at the edges of records of a batch
     recs = [codes[:30_000], codes[30_000:], codes[4_990:5_230]]
-    for rec, got in zip(recs, sc.sketch_records_torch(recs, k, w, "cpu")):
+    for rec, got in zip(recs, sr.sketch_records_torch(recs, k, w, "cpu")):
         r = sketch_codes(rec, k, w)
         assert got.positions.tolist() == r.positions.tolist()
         assert got.hashes.tolist() == r.hashes.tolist()
@@ -157,7 +158,7 @@ def test_periodic_repeat_exact():
     codes[30_000:30_600:2] = 0
     codes[30_001:30_601:2] = 1
     sc.reset_counts()
-    got = sc.sketch_codes_torch(codes, k, w, "cpu")
+    got = sr.sketch_codes_torch(codes, k, w, "cpu")
     assert sc.COUNTS["exact_runs"] == 1
     ref = sketch_codes(codes, k, w)
     assert got.positions.tolist() == ref.positions.tolist()
