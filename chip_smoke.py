@@ -74,11 +74,25 @@ D. bound    one record as long as record_bound allows on this card for each
             against the host sketcher, its peak device memory within the
             path's bytes a base (sketch_records.FUSED_BYTES_PER_BASE,
             GENERAL_BYTES_PER_BASE)
+E. mesh     parallel/mesh.py sketch_records_sharded over [cuda:0]*4 and
+            [cuda:0]*3 on one N-free record of 248,956,422 bases (human
+            chromosome 1's length, phase 8's generator) and on phase A's
+            draft scaffolds with a 3,000-base N run across a seam of each
+            tiling: equal to the single-device sketch and the host sketcher,
+            every tile through the card's kernels; the walls of both;
+            distributed_unique_count against np.unique; dryrun_multichip(8)
+F. dist     run inside phase 8's work directory: `assemble backend=cuda
+            n_procs=2 local_devices=2` as two processes on the one card
+            (gloo), every artifact byte-equal to phase 8's card run in a
+            directory of its own; each process's counts line (kernels on
+            cuda:0, bytes sent by exchange, the verdict's time on the card);
+            the hash-bucket verdict over the three assemblies' streams
+            bit-equal to the replicated one on the card
 
 The last three lines are the kernels' JSON record (with the general path's
-launches and times from phase A's run where a kernel runs on it), the card's
-name and power limit, and {"ok": true, "device": {...}}.  Imports neither JAX nor the JAX
-package.
+launches and times from phase A's run where a kernel runs on it, and the
+launches of phases E and F), the card's name and power limit, and
+{"ok": true, "device": {...}}.  Imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
@@ -86,6 +100,7 @@ import filecmp
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -97,6 +112,7 @@ import torch
 from ntjoin_tpu_torch import kernel_prof
 from ntjoin_tpu_torch.core import orientation
 from ntjoin_tpu_torch.core.assembly import AssemblySketch, SharedIndex
+from ntjoin_tpu_torch.dryrun import dryrun_multichip
 from ntjoin_tpu_torch.graph.mingraph import build_graph
 from ntjoin_tpu_torch.graph.paths import find_paths
 from ntjoin_tpu_torch.io import native
@@ -107,6 +123,9 @@ from ntjoin_tpu_torch.ops import sketch_cuda as sc
 from ntjoin_tpu_torch.ops import sketch_general as sg
 from ntjoin_tpu_torch.ops import sketch_records as sr
 from ntjoin_tpu_torch.ops.nthash_np import sketch_codes
+from ntjoin_tpu_torch.parallel import distributed as pd
+from ntjoin_tpu_torch.parallel import mesh as pm
+from ntjoin_tpu_torch.parallel import pipeline as pp
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 K, W = 32, 1000
@@ -795,15 +814,21 @@ def _counted_route(counts: dict, w: int, what: str) -> None:
         fail(f"{what}: the general path did not run on its kernels: {counts}")
 
 
+def draft_scaffolds() -> tuple[list[np.ndarray], int]:
+    """Phase A's 100 Mbp: 20 seeded draft scaffolds of 5 Mbp (the genome of
+    phase 8) with an N run of 50-500 bp every 2-8 kbp; and the runs added."""
+    rng = np.random.default_rng(61)
+    recs = genome(rng, [5_000_000] * 20)
+    return recs, sum(_paint_gaps(rng, c) for c in recs)
+
+
 def general() -> dict[str, dict]:
     """Phase A: 100 Mbp of draft scaffolds through the general path at
     w=1000 and 5000 against the host oracle, its kernels against their plain
     versions on the same batch, and CUDA-event times of its stages; returns
     the general path's launches in its own run at w=1000 and its kernels'
     times, plain times and bounds on that batch."""
-    rng = np.random.default_rng(61)
-    recs = genome(rng, [5_000_000] * 20)
-    runs = sum(_paint_gaps(rng, c) for c in recs)
+    recs, runs = draft_scaffolds()
     bases = sum(c.shape[0] for c in recs)
     say(f"== general: {len(recs)} draft scaffolds, {bases} bases (the genome of phase 8), "
         f"{runs} more N runs of 50-500 bp every 2-8 kbp")
@@ -946,6 +971,210 @@ def bound_records() -> None:
         if peak > per * n:
             fail(f"bound: the {path} path held {peak / n:.2f} bytes a base, over {per}")
         del c, got, want
+
+
+# -- phase E: the sketch tiled across a mesh -------------------------------------------
+
+CHR1_BASES = 248_956_422  # human chromosome 1, GRCh38
+MESH_KERNELS = ("hash", "flags", "window_emit", "window_emit_gmem", "window")
+
+
+def _seam_run(codes: np.ndarray, n_shards: int, length: int) -> int:
+    """Paint an N run of ``length`` bases inside the overlap of tiles 0 and
+    1 of ``n_shards`` (retiling until it stays there); returns its start."""
+    runs = pm._valid_kmer_runs(codes, K)
+    n_valid = int(runs[1].sum())
+    removed = length + K - 1
+    for _ in range(5):
+        tw = -(-(n_valid - removed - W + 1) // n_shards)
+        # right after the k-mer of rank tw + w/2, inside the overlap
+        start = int(pm._kmer_at(runs, np.array([tw + W // 2]))[0]) + K
+        trial = codes.copy()
+        trial[start : start + length] = 4
+        lo, hi, _ = pm._tile_record(trial, n_shards, K, W)
+        if lo[1] < start and start + length < hi[0]:
+            codes[:] = trial
+            return start
+        removed = n_valid - int(pm._valid_kmer_runs(trial, K)[1].sum())
+    fail(f"mesh: no seam of {n_shards} tiles holds the N run")
+
+
+def _equal(got, want, what: str) -> None:
+    for i, (g, r) in enumerate(zip(got, want)):
+        if not (np.array_equal(g.positions, r.positions) and np.array_equal(g.hashes, r.hashes)):
+            fail(f"{what}: record {i} differs from the host sketcher")
+
+
+def _mesh_counted(counts: dict, mesh_counts: dict, tiles: int, general: bool, what: str) -> None:
+    """Every tile went into a device batch that launched the hash, flag and
+    window/emission kernels; none to the host, no plain version."""
+    if (mesh_counts["tiles"] != tiles or counts["host_records"]
+            or counts["general_records"] != (tiles if general else 0)):
+        fail(f"{what}: the tiles did not all take the card's {'general' if general else 'fused'} "
+             f"path: mesh {mesh_counts}, sketch {counts}")
+    _counted_route(counts, W, what)
+
+
+def mesh_phase(smi: str) -> dict[str, int]:
+    """Phase E: sketch_records_sharded over four and three shards of the one
+    card, on a chromosome-1-long N-free record and on phase A's draft
+    scaffolds with an N run longer than the halo across a seam of each
+    tiling, equal to the single-device sketch and the host sketcher; the
+    walls of both; the gathered distinct count; dryrun_multichip.  Returns
+    the kernels' launches in the sharded runs."""
+    rng = np.random.default_rng(91)
+    t0 = time.monotonic()
+    (chr1,) = genome(rng, [CHR1_BASES])
+    bad = chr1 >= 4
+    chr1[bad] = rng.integers(0, 4, size=int(bad.sum()), dtype=np.uint8)  # N-free
+    drafts, _ = draft_scaffolds()
+    seams = {n: _seam_run(drafts[i], n, 3000) for i, n in enumerate((4, 3))}
+    say(f"== mesh: one N-free record of {CHR1_BASES} bases (phase 8's generator); phase A's "
+        f"{len(drafts)} draft scaffolds with a 3,000-base N run (halo {W + K - 2}) across a seam "
+        f"of 4 tiles (record 0, base {seams[4]}) and of 3 (record 1, base {seams[3]}); made in "
+        f"{time.monotonic() - t0:.1f} s")
+    launches = dict.fromkeys(MESH_KERNELS, 0)
+    for name, recs in (("chr1", [chr1]), ("drafts", drafts)):
+        general = name == "drafts"
+        t0 = time.monotonic()
+        want = [_oracle(c, W) for c in recs]
+        host_s = time.monotonic() - t0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        single = sr.sketch_records_torch(recs, K, W, "cuda")
+        single_s = time.monotonic() - t0
+        _equal(single, want, f"mesh ({name}): the single-device sketch")
+        for n_shards in (4, 3):
+            sc.reset_counts()
+            pm.reset_counts()
+            t0 = time.monotonic()
+            got = pm.sketch_records_sharded(recs, K, W, ["cuda:0"] * n_shards)
+            wall = time.monotonic() - t0
+            counts, mesh_counts = dict(sc.COUNTS), dict(pm.COUNTS)
+            _equal(got, want, f"mesh ({name}, {n_shards} shards)")
+            _mesh_counted(counts, mesh_counts, n_shards * len(recs), general,
+                          f"mesh ({name}, {n_shards} shards)")
+            for k in MESH_KERNELS:
+                launches[k] += counts[k]
+            say(f"   {name}, {n_shards} shards of cuda:0: equal to the single-device sketch and "
+                f"the host sketcher ({sum(g.positions.shape[0] for g in got)} minimizers); "
+                f"sharded {wall:.3f} s, single-device {single_s:.3f} s, host {host_s:.3f} s "
+                f"({smi}); mesh {json.dumps(mesh_counts)}; sketch {json.dumps(counts)}")
+        if name == "chr1":
+            h = got[0].hashes
+            per = -(-h.shape[0] // 4)
+            vals = np.zeros(4 * per, dtype=np.uint64)
+            vals[: h.shape[0]] = h
+            uniq, total = pm.distributed_unique_count(
+                ["cuda:0"] * 4, torch.from_numpy(vals.view(np.int64).reshape(4, per)),
+                torch.full((4,), per))
+            expect = np.unique(vals).shape[0]
+            if uniq.tolist() != [expect] * 4 or total.tolist() != [4 * per] * 4:
+                fail(f"mesh: distributed_unique_count {uniq.tolist()} {total.tolist()}, "
+                     f"np.unique {expect}")
+            say(f"   distributed_unique_count over 4 rows of its sketch on cuda:0: {expect} "
+                "distinct, as np.unique")
+        del single, got, want
+    dryrun_multichip(8, "cuda")
+    say("   dryrun_multichip(8, 'cuda'): every step equal to its oracle")
+    return {k: v for k, v in launches.items() if v}
+
+
+# -- phase F: two processes on the one card --------------------------------------------
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _tsv_hashes(path: str) -> np.ndarray:
+    """The hashes of a minimizer TSV as int64, in stream order, duplicates
+    kept."""
+    hs = []
+    with open(path, encoding="utf-8") as fh:
+        for line in fh:
+            hs += [int(t.split(":", 1)[0]) for t in line.rstrip("\n").split("\t")[1].split()]
+    return np.array(hs, dtype=np.uint64).view(np.int64)
+
+
+def distributed_phase(work: str, args: list[str]) -> dict[str, int]:
+    """Phase F: ``assemble backend=cuda n_procs=2 local_devices=2`` as two
+    processes on the one card, in a directory of its own beside phase 8's
+    card run (``work/port``), whose artifacts it must give byte for byte;
+    each process's counts line; then the hash-bucket verdict over the three
+    assemblies' streams on the card against the replicated one.  Returns the
+    kernels' launches summed over both processes."""
+    port, dist = os.path.join(work, "port"), os.path.join(work, "dist")
+    os.makedirs(dist)
+    for fa in ("ref1.fa", "ref2.fa", "target.fa"):
+        os.link(os.path.join(port, fa), os.path.join(dist, fa))
+    coord = f"127.0.0.1:{_free_port()}"
+    cmd = [sys.executable, "-m", "ntjoin_tpu_torch.cli", "assemble", "backend=cuda", *args,
+           "n_procs=2", "local_devices=2", f"coordinator={coord}"]
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(cmd + [f"process_id={pid}"], cwd=dist,
+                              env=dict(os.environ, PYTHONPATH=REPO), stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.monotonic() - t0
+    for pid, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"distributed: process {pid} exited {p.returncode}:\n{err[-4000:]}")
+    say(f"== distributed: two processes of two shards each on cuda:0 (gloo at {coord}); "
+        f"wall {wall:.3f} s for both")
+    launches = dict.fromkeys(MESH_KERNELS, 0)
+    for pid, (out, _) in enumerate(outs):
+        c = _counts_line(out, "dist_counts")
+        sk = c["sketch_counts"]
+        a2a = [b for op, b in c["exchanges"] if op == "all_to_all"]
+        if (c["device"] != "cuda:0" or c["process_id"] != pid or c["n_shards"] != 4
+                or sk["host_records"] or any(sk[f"{op}_plain"] for op in sc._OPS)
+                or sk["hash"] < 1 or sk["flags"] != sk["hash"] or sk["window_emit"] < 1
+                or len(a2a) != 2 or min(a2a) <= 0 or not c["verdict_ms"]):
+            fail(f"distributed: process {pid} did not sketch on the card's kernels, exchange "
+                 f"and judge on the card: {c}")
+        for k in MESH_KERNELS:
+            launches[k] += sk[k]
+        say(f"   process {pid}: {c['records']} records, {c['entries']} minimizers, "
+            f"{c['survivors']} survive; bytes sent by exchange {c['exchanges']}; verdict on the "
+            f"card {', '.join(f'{t:.3f}' for t in c['verdict_ms'])} ms; sketch {json.dumps(sk)}")
+    made = [f for f in sorted(os.listdir(dist)) if not f.endswith(".fa") or "scaffolds" in f]
+    for f in ("e2e.path", "e2e.agp", "e2e.mx.dot",
+              *(f"target.fa.k{K}.w{W}.n2.{p}.scaffolds.fa" for p in ("assigned", "unassigned",
+                                                                       "all"))):
+        if f not in made:
+            fail(f"distributed: artifact {f} missing")
+    for f in made:
+        if not filecmp.cmp(os.path.join(dist, f), os.path.join(port, f), shallow=False):
+            fail(f"distributed: artifact {f} differs from the one-process card run's")
+    say(f"   {len(made)} artifacts byte-equal to phase 8's card run ({', '.join(made)})")
+
+    # the verdict over the three streams, 4 shards of the card, both ways
+    streams = [_tsv_hashes(os.path.join(port, f"{fa}.k{K}.w{W}.tsv"))
+               for fa in ("ref1.fa", "ref2.fa", "target.fa")]
+    h = np.concatenate(streams)
+    asm = np.repeat(np.arange(3), [s.shape[0] for s in streams])
+    width = -(-h.shape[0] // 4)
+    rows = [torch.from_numpy(pp._pack_rows(x, fill, 4, width)).cuda()
+            for x, fill in ((h, 0), (asm, -1), (np.ones(h.shape[0], bool), False))]
+    bw = pd.bucket_width_for_rows(rows[0].cpu().numpy(), rows[2].cpu().numpy(), 4)
+    pd.reset_counts()
+    sharded = pd.distributed_survive_sharded(*rows, 3, bw).reshape(-1)
+    replicated = pd.distributed_survive(*rows, 3)
+    if not torch.equal(sharded, replicated):
+        fail(f"distributed: sharded and replicated verdicts differ in "
+             f"{int((sharded != replicated).sum())} entries")
+    say(f"   the hash-bucket verdict over the three streams ({h.shape[0]} minimizers, 4 shards "
+        f"of {width}, buckets of {bw}) bit-equal to the replicated one on the card; "
+        f"{int(sharded.sum())} survive; verdict {pd.COUNTS['verdict_ms'][0]:.3f} ms sharded, "
+        f"{pd.COUNTS['verdict_ms'][1]:.3f} ms replicated")
+    return {k: v for k, v in launches.items() if v}
 
 
 # -- phase B: Mann-Kendall ------------------------------------------------------------
@@ -1141,11 +1370,12 @@ def _counts_line(out: str, key: str) -> dict:
 
 
 def e2e(sizes: list[int], target, words: tuple[str, ...] = (),
-        what: str = "e2e") -> tuple[dict, dict]:
+        what: str = "e2e", then=None) -> tuple[dict, dict, object]:
     """Phase 8 (and phase C): the port's assemble on the card against its
     host path (C++ sketcher, NumPy graph layers), with the target that
-    ``target`` writes and the extra ``words``; returns the card run's sketch
-    and Mann-Kendall counts."""
+    ``target`` writes and the extra ``words``; then ``then(work directory,
+    the assemble words)`` (phase F).  Returns the card run's sketch and
+    Mann-Kendall counts and what ``then`` returned."""
     rng = np.random.default_rng(5)
     with tempfile.TemporaryDirectory(prefix="ntjoin_smoke_") as tmp:
         port, ref = os.path.join(tmp, "port"), os.path.join(tmp, "ref")
@@ -1207,7 +1437,7 @@ def e2e(sizes: list[int], target, words: tuple[str, ...] = (),
         mk_counts = _counts_line(p_out, "mk_counts")
         say(f"   card run's Mann-Kendall counts: {json.dumps(mk_counts)}; the host run's: "
             f"{json.dumps(_counts_line(r_out, 'mk_counts'))}")
-        return counts, mk_counts
+        return counts, mk_counts, then(tmp, args) if then else None
 
 
 JSON_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1224,20 +1454,21 @@ def main() -> int:
     general_path = general()
     mann_kendall()
     sizes = [24_000_000, 22_000_000, 20_000_000, 18_000_000, 16_000_000]
-    run, _ = e2e(sizes, contigs_target)
+    run, _, dist_launches = e2e(sizes, contigs_target, then=distributed_phase)
     if run["host_records"] != 0:
         fail(f"{run['host_records']} records took the host sketcher")
     if run["flags"] != run["hash"]:
         fail(f"the e2e run's batches went round the flag kernel: {run}")
     counts.update({name: run[name] for name in ("hash", "flags", "window_emit", "window")})
     # phase C: the same genome, an N-dense draft target, mkt=True
-    draft, mk_run = e2e(sizes, draft_target, ("mkt=True",), "e2e, N-dense draft, mkt=True")
+    draft, mk_run, _ = e2e(sizes, draft_target, ("mkt=True",), "e2e, N-dense draft, mkt=True")
     if draft["general_records"] < 1 or draft["host_records"]:
         fail(f"the draft's N-dense scaffolds did not take the general path: {draft}")
     _counted_route(draft, W, "e2e draft")
     if mk_run["device"] != "cuda" or mk_run["mk_runs"] < 1:
         fail(f"the Mann-Kendall op did not run on the card in the mkt=True run: {mk_run}")
     bound_records()
+    mesh_launches = mesh_phase(smi)
 
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "ntjoin_tpu"
@@ -1254,7 +1485,9 @@ def main() -> int:
          **{key: times[name][key] for key in ("launch_floor_ms",) if key in times[name]},
          **({"launches_general": general_path[name]["launches"]}
             if name in general_path else {}),
-         **({"general_ms": general_path[name]["ms"]} if name in general_path else {})}
+         **({"general_ms": general_path[name]["ms"]} if name in general_path else {}),
+         **({"launches_mesh": mesh_launches[name]} if name in mesh_launches else {}),
+         **({"launches_dist": dist_launches[name]} if name in dist_launches else {})}
         for name in sc.KERNELS
     ]}))
     say(smi)

@@ -23,9 +23,16 @@ default) is ``device`` for the cuda and torch backends and ``host`` for
 native and numpy, as ``ntjoin_tpu.cli`` resolves it for its device
 backends; the Mann-Kendall op of ``mkt=True`` runs on the same device.
 Options whose device code is not ported yet are refused.
+
+With more than one CUDA device visible, ``backend=cuda|auto`` tiles each
+record's sketch across all of them (``parallel/mesh.py``; the JAX package's
+rule, ``NTJOIN_TPU_MESH=off`` turns it off); on one card it is not taken.
+``n_procs=N coordinator=host:port process_id=i [local_devices=m]`` runs one
+process of the multi-process pipeline (``parallel/pipeline.py``, gloo).
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -44,7 +51,13 @@ from ntjoin_tpu_torch.io import native
 from ntjoin_tpu_torch.io.fasta import read_fasta, write_fai
 from ntjoin_tpu_torch.ops import device_index, mannkendall, sketch_cuda, sketch_records
 from ntjoin_tpu_torch.ops.nthash_np import sketch_codes, sketch_seq
-from ntjoin_tpu_torch.utils.atomic import atomic_write
+from ntjoin_tpu_torch.parallel.distributed import shard_device
+from ntjoin_tpu_torch.parallel.mesh import sketch_records_sharded
+from ntjoin_tpu_torch.parallel.pipeline import (
+    DistributedConfig,
+    distributed_assemble,
+    write_all_scaffolds,
+)
 from ntjoin_tpu_torch.utils.timers import StageTimers
 
 VERSION = "ntjoin-tpu 0.1.0 (capability parity target: ntJoin v1.1.5)"
@@ -76,7 +89,7 @@ _DEFAULTS = {
     "backend": "auto",
     # filter/graph stage: host | device | auto (see _index_backend)
     "index_backend": "auto",
-    # the multi-process mode's keys: accepted, refused unless left at these
+    # the multi-process mode (parallel/pipeline.py)
     "coordinator": "None",
     "n_procs": "1",
     "process_id": "0",
@@ -121,8 +134,9 @@ def _refusal(v: dict[str, str]) -> str | None:
                 "(ROADMAP Queue A items 2-3)")
     if backend not in ("auto", "cuda", "torch", "native", "numpy"):
         return f"unknown backend={backend} (cuda, torch, native or numpy)"
-    if int(v["n_procs"]) > 1 or v["coordinator"] != "None":
-        return "n_procs>1 is not ported yet (ROADMAP Queue A item 12)"
+    if int(v["n_procs"]) > 1 and v["coordinator"] == "None":
+        return ("n_procs>1 needs coordinator=<host:port>, the address of the "
+                "process group every process joins")
     return None
 
 
@@ -137,10 +151,21 @@ def _index_backend(v: dict[str, str]) -> tuple[str, str]:
     return index, device
 
 
+def _mesh(v: dict[str, str]) -> list[str] | None:
+    """The devices each record's sketch is tiled across, or None: every
+    CUDA device when the backend is auto or cuda, more than one is visible
+    and ``NTJOIN_TPU_MESH`` is not ``off`` (``ntjoin_tpu/cli.py:266-289``)."""
+    if v["backend"] not in ("auto", "cuda") or os.environ.get("NTJOIN_TPU_MESH", "auto") == "off":
+        return None
+    n = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(n)] if n > 1 else None
+
+
 def _sketcher(backend: str, device: str):
-    """(records' codes, k, w) -> list of Sketch for one assembly."""
+    """(records' codes, k, w) -> list of Sketch for one assembly; the cuda
+    backend sketches on ``device``, a card."""
     if backend in ("auto", "cuda"):
-        return lambda codes, k, w: sketch_records.sketch_records_torch(codes, k, w, "cuda")
+        return lambda codes, k, w: sketch_records.sketch_records_torch(codes, k, w, device)
     if backend == "torch":
         return lambda codes, k, w: sketch_records.sketch_records_torch(
             codes, k, w, device, plain=True)
@@ -214,26 +239,8 @@ def assemble(words: list[str]) -> int:
 
     k, w, n = int(v["k"]), int(v["w"]), int(v["n"])
     prefix = v["prefix"] or f"out.k{k}.w{w}.n{n}"
-    timers = StageTimers(enabled=_truthy(v["time"]), prefix=prefix)
-    sketch = _sketcher(v["backend"], v.get("device", "cpu"))
-    cache: dict[str, AssemblySketch] = {}
-    tsvs = []
-    for fa in v["references"].split() + [v["target"]]:
-        tsv, sk = _ensure_sketch(fa, k, w, force, sketch, timers)
-        tsvs.append(tsv)
-        if sk is not None:
-            cache[tsv] = sk
-
     overlap_g = v["overlap_g"] or v["g"]
-    cfg = ScaffoldConfig(
-        references=tsvs[:-1],
-        target=tsvs[-1],
-        target_weight=float(v["target_weight"]),
-        reference_weights=[float(x) for x in v["reference_weights"].split()],
-        prefix=prefix,
-        n=n,
-        k=k,
-        w=w,
+    scaffold_opts = dict(
         g=int(v["g"]),
         G=int(v["G"]),
         mkt=_truthy(v["mkt"]),
@@ -247,6 +254,33 @@ def assemble(words: list[str]) -> int:
         overlap_w=int(v["overlap_w"]),
         index_backend=index_backend,
     )
+    if int(v["n_procs"]) > 1 or v["coordinator"] != "None":
+        return _distributed(v, k, w, n, prefix, index_device, scaffold_opts)
+    timers = StageTimers(enabled=_truthy(v["time"]), prefix=prefix)
+    mesh = _mesh(v)
+    if mesh:
+        sketch = functools.partial(sketch_records_sharded, mesh=mesh)
+    else:
+        sketch = _sketcher(v["backend"], index_device)
+    cache: dict[str, AssemblySketch] = {}
+    tsvs = []
+    for fa in v["references"].split() + [v["target"]]:
+        tsv, sk = _ensure_sketch(fa, k, w, force, sketch, timers)
+        tsvs.append(tsv)
+        if sk is not None:
+            cache[tsv] = sk
+
+    cfg = ScaffoldConfig(
+        references=tsvs[:-1],
+        target=tsvs[-1],
+        target_weight=float(v["target_weight"]),
+        reference_weights=[float(x) for x in v["reference_weights"].split()],
+        prefix=prefix,
+        n=n,
+        k=k,
+        w=w,
+        **scaffold_opts,
+    )
     device_index.reset_counts()
     mannkendall.reset_counts()
     with timers.stage("scaffold"):
@@ -254,11 +288,7 @@ def assemble(words: list[str]) -> int:
 
     base = f"{v['target']}.k{k}.w{w}.n{n}"
     parts = [f"{base}.assigned.scaffolds.fa", f"{base}.unassigned.scaffolds.fa"]
-    with atomic_write(f"{base}.all.scaffolds.fa", mode="wb") as out:
-        for part in parts:
-            if os.path.exists(part):
-                with open(part, "rb") as fh:
-                    shutil.copyfileobj(fh, out, length=16 << 20)
+    write_all_scaffolds(v["target"], k, w, n)
     if _truthy(v["gzip"]):
         for part in parts + [f"{base}.all.scaffolds.fa"]:
             if os.path.exists(part):
@@ -268,6 +298,36 @@ def assemble(words: list[str]) -> int:
         print("sketch_counts\t" + json.dumps(sketch_cuda.COUNTS))
         print("index_counts\t" + json.dumps(device_index.counts_report()))
         print("mk_counts\t" + json.dumps(mannkendall.COUNTS))
+    return 0
+
+
+def _distributed(v: dict[str, str], k: int, w: int, n: int, prefix: str, device: str,
+                 scaffold_opts: dict) -> int:
+    """One process of the multi-process pipeline, as ``ntjoin_tpu/cli.py``
+    runs it: its records sketched by the backend's sketcher on its shards'
+    device, the verdict by hash bucket, process 0 scaffolds.  Prints the
+    process's counts under ``time=True``."""
+    pid = int(v["process_id"])
+    dev = str(shard_device(pid, device))
+    cfg = DistributedConfig(
+        target=v["target"],
+        references=v["references"].split(),
+        reference_weights=[float(x) for x in v["reference_weights"].split()],
+        target_weight=float(v["target_weight"]),
+        prefix=prefix,
+        k=k,
+        w=w,
+        n=n,
+        coordinator=None if v["coordinator"] == "None" else v["coordinator"],
+        num_processes=int(v["n_procs"]),
+        process_id=pid,
+        local_device_count=None if v["local_devices"] == "None" else int(v["local_devices"]),
+        device=dev,
+        scaffold_opts=scaffold_opts,
+    )
+    counts = distributed_assemble(cfg, _sketcher(v["backend"], dev))
+    if _truthy(v["time"]):
+        print("dist_counts\t" + json.dumps(counts))
     return 0
 
 
@@ -401,14 +461,15 @@ GPU options:
 backend\t\t\tMinimizer sketch backend: auto (= cuda) | cuda (CUDA kernels) | torch (their plain PyTorch versions on 'device') | native | numpy [auto]
 device\t\t\tTorch device of backend=torch and of its index stages [cpu]
 index_backend\t\tFilter/graph stage placement: auto (device for cuda and torch, host for native and numpy) | device | host [auto]
-n_procs\t\t\tMulti-process distributed mode: not ported yet, refused unless 1 [1]
-process_id\t\tThis process's id in the distributed mode [0]
-coordinator\t\tCoordinator address of the distributed mode [None]
+n_procs\t\t\tMulti-process distributed mode: total process count [1]
+process_id\t\tThis process's id (0..n_procs-1) [0]
+coordinator\t\tgloo coordinator address for multi-host runs [None]
 local_devices\t\tDevices visible to this process (distributed mode) [None]
 
 Notes:
 \t- Ensure the lists of reference assemblies and weights are in the same order, and that both are space-separated
 \t- Ensure all assembly files are in the current working directory
+\t- With more than one CUDA device visible, backend=cuda tiles each record's sketch across them (NTJOIN_TPU_MESH=off: not); on one card it is not taken
 
 Other commands:
 \tpython -m ntjoin_tpu_torch.cli analysis target=... references=... ref=truth.fa   minimap2+samtools alignment of inputs/outputs

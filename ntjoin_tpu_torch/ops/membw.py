@@ -15,7 +15,7 @@ from ntjoin_tpu_torch.ops import sketch_cuda as sc
 
 def copy_words_ref(x: torch.Tensor) -> torch.Tensor:
     """Plain version: a new tensor equal to ``x``."""
-    sc.COUNTS["copy_plain"] += 1
+    sc.add_count("copy_plain")
     return torch.empty_like(x).copy_(x)
 
 

@@ -50,6 +50,7 @@ import ctypes
 import glob
 import os
 import subprocess
+import threading
 import time
 
 import numpy as np
@@ -69,10 +70,17 @@ LIB_PATH = os.path.join(_PKG, "_build", "libntjoin_cuda.so")
 # counters so that a run can show which code served it; ``reset_counts``
 # zeroes them.  The sketch runs ``hash``, ``flags``, one of the two
 # window/emission routes and ``window``; the copy (``ops/membw.py``) serves
-# the profiler.
+# the profiler.  ``add_count`` adds under a lock: a mesh of several devices
+# sketches from a thread a device (``parallel/mesh.py``).
 KERNELS = ("hash", "flags", "window_emit", "window_emit_gmem", "window", "copy")
 _OPS = ("hash", "flags", "window_emit", "window", "copy")  # each has one plain version
 COUNTS: dict[str, int] = {}
+COUNT_LOCK = threading.Lock()
+
+
+def add_count(name: str, n: int = 1) -> None:
+    with COUNT_LOCK:
+        COUNTS[name] += n
 
 
 def reset_counts() -> None:
@@ -206,7 +214,7 @@ def _lib():
 def _launched(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
-    COUNTS[name] += 1
+    add_count(name)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -283,7 +291,7 @@ def hash_chunked_ref(codes_rc: torch.Tensor, k: int) -> tuple[torch.Tensor, torc
     ``srol^(k-1-t)(seed[b])`` (forward) and ``srol^t(seed[3-b])`` (reverse),
     t the base's offset in the k-mer; rows before 0 contribute nothing.
     """
-    COUNTS["hash_plain"] += 1
+    add_count("hash_plain")
     rows, C = codes_rc.shape
     dev = codes_rc.device
     code = codes_rc.to(torch.uint8).long().clamp_(max=CODE_INVALID)
@@ -376,7 +384,7 @@ def window_argmin_ref(h: torch.Tensor, L: int, w: int, off: int,
     """Plain version of kernel 3: (L, len(chunks)) int64 stream position
     c*L + s of the leftmost minimal hash of every window of each listed
     chunk c (elements at rows off + s); all chunks by default."""
-    COUNTS["window_plain"] += 1
+    add_count("window_plain")
     return _argmin_core(h, L, w, off, _all_chunks(h) if chunks is None else chunks)
 
 
@@ -384,7 +392,7 @@ def window_emit_ref(h: torch.Tensor, flags: torch.Tensor, L: int, w: int, off: i
                     cap: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of kernel 2: per-chunk emission lists (pos, hash), each
     (cap, C) and padded with -1 / 0, and the true per-chunk counts (C,)."""
-    COUNTS["window_emit_plain"] += 1
+    add_count("window_emit_plain")
     C = h.shape[1]
     am = _argmin_core(h, L, w, off, _all_chunks(h))
     emit = _emit_mask(am, flags)
@@ -616,7 +624,7 @@ def window_flags_ref(val: torch.Tensor, L: int, w: int, off: int) -> torch.Tenso
     record's first window); val (rows, C) int8 holds 1 for a valid k-mer, the
     window's first at row off + j.  For a ``pitched`` val the pass runs over
     the whole buffer, so the flags come out pitched alike."""
-    COUNTS["flags_plain"] += 1
+    add_count("flags_plain")
     n_cols = val.shape[1]
     val = _padded(val)
     C = val.shape[1]
@@ -724,7 +732,7 @@ def window_stream(h: torch.Tensor, val: torch.Tensor, L: int, w: int, off: int,
     pos, canon = _compact_lists(spos, shsh, count, total)
     if n_over:
         # exact path for the overflowed chunks, merged back in stream order
-        COUNTS["exact_runs"] += 1
+        add_count("exact_runs")
         chunks = torch.nonzero(over).flatten()
         am = (window_argmin_ref if plain else window_argmin)(h, L, w, off, chunks)
         xpos, xcanon = _compact_exact(am, flags, h, chunks, L, off)

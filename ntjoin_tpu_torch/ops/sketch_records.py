@@ -53,7 +53,8 @@ GENERAL_BYTES_PER_BASE = 26
 def _stage(name: str, t0: float) -> float:
     """Add the seconds since t0 to ``STAGES[name]``; returns the clock."""
     t = time.monotonic()
-    STAGES[name] = STAGES.get(name, 0.0) + (t - t0)
+    with sc.COUNT_LOCK:
+        STAGES[name] = STAGES.get(name, 0.0) + (t - t0)
     return t
 
 
@@ -160,16 +161,16 @@ def sketch_records_torch(codes_list: list[np.ndarray], k: int, w: int,
         general = bool((c >= CODE_INVALID).any())
         if c.shape[0] > bound[general]:
             out[i] = _host_sketch(c, k, w)
-            sc.COUNTS["host_records"] += 1
-            sc.COUNTS["host_records_size"] += 1
+            sc.add_count("host_records")
+            sc.add_count("host_records_size")
             continue
         paths[general].append((i, c))
-    sc.COUNTS["general_records"] += len(paths[True])
+    sc.add_count("general_records", len(paths[True]))
     _stage("plan", t0)
     for general, entries in paths.items():
         sketch = sketch_general_torch if general else _fused
         for b in _batches(entries, k, min(BATCH_BASES, bound[general])):
-            sc.COUNTS["general_batches"] += general
+            sc.add_count("general_batches", general)
             got = _sketch_batch([c for _, c in b], k, w, device, sketch, slot_cap, plain)
             for (i, _), sk in zip(b, got):
                 out[i] = sk

@@ -211,7 +211,7 @@ def test_own_cli_helpers_match_jax_cli(tmp_path):
 @pytest.mark.parametrize("word,item", [
     ("backend=pallas", "ROADMAP Queue A items 2-3"),
     ("backend=jax", "ROADMAP Queue A items 2-3"),
-    ("n_procs=2", "ROADMAP Queue A item 12"),
+    ("n_procs=2", "n_procs>1 needs coordinator=<host:port>"),
 ])
 def test_refusals(tmp_path, capsys, monkeypatch, word, item):
     monkeypatch.chdir(tmp_path)
@@ -221,6 +221,45 @@ def test_refusals(tmp_path, capsys, monkeypatch, word, item):
     assert rc != 0
     assert err.startswith("ERROR: ") and item in err and err.count("\n") == 1
     assert not list(tmp_path.iterdir())
+
+
+def test_mesh_branch_matches_one_device(tmp_path, monkeypatch):
+    """``_mesh`` handing four CPU shards: each record's sketch is tiled
+    (``parallel/mesh.py``) and every artifact is byte-equal to the
+    one-device run's."""
+    from ntjoin_tpu_torch.parallel import mesh
+
+    args = ["assemble", "-B", *_COMMON, "prefix=m", "agp=True", "backend=torch"]
+    for name in ("one", "mesh"):
+        (tmp_path / name).mkdir()
+        _more_sequences(tmp_path / name)
+    monkeypatch.chdir(tmp_path / "one")
+    assert cli._mesh(cli._parse_vars(args[2:])) is None  # no card here
+    assert cli.main(args) == 0
+    monkeypatch.chdir(tmp_path / "mesh")
+    monkeypatch.setattr(cli, "_mesh", lambda v: ["cpu"] * 4)
+    mesh.reset_counts()
+    assert cli.main(args) == 0
+    assert mesh.COUNTS["sharded_records"] >= 24 and mesh.COUNTS["tiles"] >= 4 * 24
+    made = sorted(p.name for p in (tmp_path / "one").iterdir())
+    assert "m.path" in made and "target.fa.k32.w250.tsv" in made
+    assert sorted(p.name for p in (tmp_path / "mesh").iterdir()) == made
+    for name in made:
+        assert (tmp_path / "mesh" / name).read_bytes() == (tmp_path / "one" / name).read_bytes(), name
+
+
+def test_mesh_rule(monkeypatch):
+    """The JAX package's rule: cuda or auto, more than one card, and
+    NTJOIN_TPU_MESH not off."""
+    monkeypatch.setattr(cli.torch.cuda, "device_count", lambda: 4)
+    v = cli._parse_vars(["backend=cuda"])
+    assert cli._mesh(v) == [f"cuda:{i}" for i in range(4)]
+    assert cli._mesh(cli._parse_vars(["backend=torch"])) is None
+    monkeypatch.setenv("NTJOIN_TPU_MESH", "off")
+    assert cli._mesh(v) is None
+    monkeypatch.setenv("NTJOIN_TPU_MESH", "auto")
+    monkeypatch.setattr(cli.torch.cuda, "device_count", lambda: 1)
+    assert cli._mesh(v) is None
 
 
 def _help_keys(text: str) -> list[str]:

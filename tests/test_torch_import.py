@@ -37,7 +37,9 @@ def test_every_copied_layer_is_listed():
                  "io.fasta", "core.pathnode", "core.config", "core.assembly",
                  "core.orientation", "core.overlap_region", "core.overlap_trim", "core.paths",
                  "core.scaffolder", "graph.mingraph", "graph.paths", "emit.writers",
-                 "ops.mannkendall", "ops.sketch_general", "utils.bloom", "analysis", "run"):
+                 "ops.mannkendall", "ops.sketch_general", "utils.bloom", "analysis", "run",
+                 "parallel.mesh", "parallel.distributed", "parallel.pipeline", "ops.filters",
+                 "dryrun"):
         assert f"ntjoin_tpu_torch.{name}" in MODULES, name
 
 
