@@ -58,17 +58,22 @@ A. general  100 Mbp as 20 seeded draft scaffolds of 5 Mbp (the genome of
             overflowed chunks must take the exact kernel, and that run's
             launches are the general path's in the kernels line; the path's
             kernels against their plain versions on the same batch (the
+            compaction kernel's counts and its hs, vs, Ls and pos; the
             exact kernel over the chunks that overflowed); CUDA-event times
-            of hash, compaction, flags, window/emission and the call, the
-            compaction by torch op (torch.profiler), peak bytes a base; a
-            slot_cap=2 run as one more equality check
+            of hash, compaction (its three passes, and its plain version),
+            flags, window/emission and the call, the plain compaction by
+            torch op (torch.profiler), peak bytes a base; a slot_cap=2 run
+            as one more equality check
 B. mk       the Mann-Kendall S (ops/mannkendall.py) of 4,096 runs of 2-2,048
-            positions and two of 100,000 on the card against the CPU, the
-            verdicts against the host scalar test; the op's time beside the
-            CPU's and the scalar test's
+            positions and two of 100,000: the S kernel bit-equal to its
+            plain version on the card, and the op on the card to the CPU,
+            the verdicts against the host scalar test; the kernel's time
+            beside the plain version's, the op's, the CPU's and the scalar
+            test's; the pairs and the kernel's bound
 C. draft    phase 8 again with an N-dense draft target (~5 Mbp scaffolds, a
             gap every 2-8 kbp, misjoined blocks) and mkt=True: 13 artifacts
-            byte-equal, the target on the general path, the op on the card
+            byte-equal, the target on the general path, the op on the card;
+            its launches of the S kernel are that kernel's main path
 D. bound    one record as long as record_bound allows on this card for each
             path (N-free: fused; an N run of 1-20 bp every 2-8 kbp: general)
             against the host sketcher, its peak device memory within the
@@ -136,6 +141,9 @@ W_GMEM = 10_000  # a window no tile holds: the device-memory route's
 # gives none).
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+# Operations of the Mann-Kendall S kernel a pair: two comparisons, their
+# difference and the add.
+MK_OPS_PER_PAIR = 4
 SOURCES = {
     "hash": ("ntjoin_tpu_torch/csrc/hash.cu", "ntjoin_tpu/ops/sketch_pallas.py:107"),
     "window_emit": ("ntjoin_tpu_torch/csrc/window_emit.cu",
@@ -146,6 +154,11 @@ SOURCES = {
     "copy": ("ntjoin_tpu_torch/csrc/copy.cu", "scripts/kernel_prof.py:190 and :380"),
     "flags": ("ntjoin_tpu_torch/csrc/flags.cu",
               "ntjoin_tpu/ops/sketch_pallas.py:1299 (XLA code there, no TPU kernel)"),
+    "stream": ("ntjoin_tpu_torch/csrc/stream.cu",
+               "ntjoin_tpu/ops/sketch_pallas.py:1562, :1584, :1605 (XLA code there, no TPU "
+               "kernel)"),
+    "mk_s": ("ntjoin_tpu_torch/csrc/mannkendall.cu",
+             "ntjoin_tpu/ops/mannkendall.py:25 (XLA code there, no TPU kernel)"),
 }
 
 
@@ -806,11 +819,13 @@ def _kernel_split(fn, top: int = 10) -> str:
 
 
 def _counted_route(counts: dict, w: int, what: str) -> None:
-    """The general batch launched the hash, flag and window/emission kernels
-    of its route, no plain version, and the host sketched nothing."""
+    """The batches launched the hash, flag and window/emission kernels of
+    their route, a general batch also the compaction kernel, no plain
+    version, and the host sketched nothing."""
     route = "window_emit" if sc.emit_tile(w) else "window_emit_gmem"
     if (counts["hash"] < 1 or counts["flags"] != counts["hash"] or counts[route] < 1
-            or counts["host_records"] or any(counts[f"{op}_plain"] for op in sc._OPS)):
+            or (counts["general_batches"] and counts["stream"] < 4) or counts["host_records"]
+            or any(counts[f"{op}_plain"] for op in sc._OPS)):
         fail(f"{what}: the general path did not run on its kernels: {counts}")
 
 
@@ -849,7 +864,8 @@ def general() -> dict[str, dict]:
         if w == W:
             if counts["window"] < 1:
                 fail(f"w={w}: no chunk of the stream overflowed, the exact kernel did not run")
-            launches = {name: counts[name] for name in ("hash", "flags", "window_emit", "window")}
+            launches = {name: counts[name]
+                        for name in ("hash", "stream", "flags", "window_emit", "window")}
             sc.reset_counts()
             _same(sr.sketch_records_torch(recs, K, w, "cuda", slot_cap=2), recs,
                   f"general path, slot_cap=2, w={w}", w)
@@ -862,14 +878,30 @@ def general() -> dict[str, dict]:
         C = h.shape[1]
         _compare(f"general hash (w={w})", (h, val),
                  sc.hash_chunked_ref(sc._chunk_view(flat, L, C, L + K - 1), K))
+        _compare(f"general compaction, count pass (w={w})",
+                 (sg._count(val, L, total, starts, K),),
+                 (sg.segment_counts_ref(val, L, total, starts, K),))
+        hs, vs, Ls, pos = sg.stream_batch(flat, total, starts, K, w)
+        p_hs, p_vs, p_Ls, p_pos = sg.stream_batch(flat, total, starts, K, w, plain=True)
+        if Ls != p_Ls:
+            fail(f"general compaction (w={w}): chunks of {Ls}, the plain version's {p_Ls}")
+        stream_err = _compare(f"general compaction (w={w})", (hs, vs, pos),
+                              (p_hs, p_vs, p_pos))
+        del p_hs, p_vs, p_pos
 
         def compaction():
+            """The compaction kernel's passes on the batch's hash layout."""
+            firsts, S = sg.first_ranks(sg._count(val, L, total, starts, K))
+            chunks = sg._chunks(*sg._gather(h, val, L, total, starts, K, firsts, S), w)
+            return chunks, sg._positions(val, L, total, starts, K, firsts, S)
+
+        def compaction_plain():
+            """The plain version's steps on the batch's hash layout."""
             pos = sg.valid_positions(val, L, total, starts, K)
             hflat, Ls = sg.gather_stream(h, pos, L, K, w)
             vflat = sg.stream_valid(pos, starts, hflat.shape[0])
             return sg.stream_chunks(hflat, Ls, w), sg.stream_chunks(vflat, Ls, w), Ls, pos
 
-        hs, vs, Ls, pos = compaction()
         flags, _ = _flags(vs, Ls, w, 0, f"general, w={w}")
         cap = sc._slot_cap(Ls, w)
         emitted = sc.window_emit(hs, flags, Ls, w, 0, cap)
@@ -885,15 +917,26 @@ def general() -> dict[str, dict]:
                  sg.sketch_general_torch(flat, total, starts, K, w, plain=True))
         _compare(f"general path, slot_cap=2 (w={w})",
                  sg.sketch_general_torch(flat, total, starts, K, w, slot_cap=2), kern)
+        firsts, S = sg.first_ranks(sg._count(val, L, total, starts, K))
+        hflat, vflat = sg._gather(h, val, L, total, starts, K, firsts, S)
         t = {"hash": _time_ms(lambda: sg.hash_batch(flat, total, K, w), 3),
-             "compaction": _time_ms(compaction, 3),
+             "compaction": _time_ms(compaction, 5),
+             "compaction_plain": _time_ms(compaction_plain, 3),
+             "count pass, scan and sync": _time_ms(
+                 lambda: sg.first_ranks(sg._count(val, L, total, starts, K)), 5),
+             "gather pass": _time_ms(
+                 lambda: sg._gather(h, val, L, total, starts, K, firsts, S), 5),
+             "chunks pass": _time_ms(lambda: sg._chunks(hflat, vflat, w), 5),
+             "positions pass": _time_ms(
+                 lambda: sg._positions(val, L, total, starts, K, firsts, S), 5),
              "flags": _time_ms(lambda: sc.window_flags(vs, Ls, w, 0), 5),
              "window_emit": _time_ms(lambda: sc.window_emit(hs, flags, Ls, w, 0, cap), 5),
              "call": _time_ms(lambda: sg.sketch_general_torch(flat, total, starts, K, w), 3)}
         say(f"   w={w}: kernels bit-equal to their plain versions on the batch (hash: C={C} "
-            f"chunks of L={L}; stream of {pos.shape[0]} k-mers and dead slots: C={hs.shape[1]} "
-            f"chunks of L={Ls}; the exact kernel over the {over.numel()} chunks that "
-            f"overflowed {cap} slots; the whole call, and with slot_cap=2)")
+            f"chunks of L={L}; the compaction's counts of {sg.stream_segments(L)} segments a "
+            f"column, and its stream of {pos.shape[0]} k-mers and dead slots: C={hs.shape[1]} "
+            f"chunks of L={Ls}, positions; the exact kernel over the {over.numel()} chunks "
+            f"that overflowed {cap} slots; the whole call, and with slot_cap=2)")
         say(f"   w={w} times (CUDA events): " + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items())
             + f"; {total / t['call'] / 1e6:.2f} Gbases/s")
         if w == W:
@@ -903,6 +946,11 @@ def general() -> dict[str, dict]:
                 "hash": {"ms": t["hash"], **bound(flat.numel() + 9 * (L + K - 1) * C,
                                                   12 * (L + K - 1) * C),
                          "plain_ms": _time_ms(lambda: sc.hash_chunked_ref(view, K), 1)},
+                # the flags read once, the kept hashes and the starts; chunks and positions
+                "stream": {"ms": t["compaction"], "plain_ms": t["compaction_plain"],
+                           "max_abs_err": stream_err, "library_ms": None,
+                           **bound(total - K + 1 + 8 * S + 8 * starts.numel() + 8 * S
+                                   + 9 * (Ls + w - 1) * Cs, 0)},
                 "flags": _flag_times(vs, Ls, w, 0),
                 "window_emit": {"ms": t["window_emit"], **_emit_bound(Ls, Cs, w, cap),
                                 "plain_ms": _time_ms(lambda: sc.window_emit_ref(
@@ -919,9 +967,9 @@ def general() -> dict[str, dict]:
                 say(f"   general {name} at w={w}: kernel {r['ms']:.4f} ms, plain "
                     f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
                     f"({r['bound_bytes']} bytes); {r['launches']} launches in the run")
-            say("   the compaction's device time by kernel (torch.profiler, one call): "
-                + _kernel_split(compaction))
-        del h, val, hs, vs, pos, flags, flat, host, kern
+            say("   the plain compaction's device time by kernel (torch.profiler, one call): "
+                + _kernel_split(compaction_plain))
+        del h, val, hs, vs, pos, flags, flat, host, kern, hflat, vflat
     return out
 
 
@@ -976,7 +1024,7 @@ def bound_records() -> None:
 # -- phase E: the sketch tiled across a mesh -------------------------------------------
 
 CHR1_BASES = 248_956_422  # human chromosome 1, GRCh38
-MESH_KERNELS = ("hash", "flags", "window_emit", "window_emit_gmem", "window")
+MESH_KERNELS = ("hash", "flags", "window_emit", "window_emit_gmem", "window", "stream")
 
 
 def _seam_run(codes: np.ndarray, n_shards: int, length: int) -> int:
@@ -1180,10 +1228,12 @@ def distributed_phase(work: str, args: list[str]) -> dict[str, int]:
 # -- phase B: Mann-Kendall ------------------------------------------------------------
 
 
-def mann_kendall() -> None:
+def mann_kendall() -> dict:
     """Phase B: the batched Mann-Kendall S on the card against the CPU, on
-    runs of the sizes a 1 Gbp path gives; the op's time beside the host
-    scalar route's on the same runs, and the verdicts of both."""
+    runs of the sizes a 1 Gbp path gives: the S kernel against its plain
+    version on the card, its time beside the plain version's, the op's and
+    the host scalar route's on the same runs, and the verdicts of both.
+    Returns the kernel's time, plain time and bound."""
     rng = np.random.default_rng(71)
     lengths = [int(n) for n in rng.integers(2, 2049, size=4096)] + [100_000, 100_000]
     runs = []
@@ -1194,13 +1244,22 @@ def mann_kendall() -> None:
         runs.append((x if rng.random() < 0.5 else x[::-1]).tolist())
     batches = [(torch.from_numpy(pos).cuda(), torch.from_numpy(lengths).cuda())
                for _, pos, lengths in orientation._mk_batches(runs)]
+    err = _compare("mann-kendall S kernel", [mk.mk_s_batch(p, n) for p, n in batches],
+                   [mk.mk_s_batch_ref(p, n) for p, n in batches])
+
+    def kernel():
+        for pos, lengths in batches:
+            mk._mk_s_kernel(pos, lengths)
 
     def op():
         for pos, lengths in batches:
             mk.mk_s_batch(pos, lengths)
 
-    op_ms = _time_ms(op, 3)
-    split = _kernel_split(op)
+    def plain():
+        for pos, lengths in batches:
+            mk.mk_s_batch_ref(pos, lengths)
+
+    kernel_ms, op_ms, plain_ms = _time_ms(kernel, 5), _time_ms(op, 5), _time_ms(plain, 1)
     mk.reset_counts()
     t0 = time.monotonic()
     s_card = orientation._mk_s(runs, torch.device("cuda"))
@@ -1220,15 +1279,23 @@ def mann_kendall() -> None:
     if orientation.determine_orientations(runs, True, 90, "cuda") != scalar:
         fail("mann-kendall: the batched verdicts differ from the scalar route's")
     say(f"== mann-kendall: {len(runs)} runs (B=4096 of L=2..2048 positions, 2 of 100,000), "
-        f"{counts['mk_batches']} batches by padded width; S equal on the card and the CPU; "
-        f"verdicts {sum(v == '+' for v in scalar)} +, {sum(v == '-' for v in scalar)} -, "
+        f"{counts['mk_batches']} batches by padded width; S of the kernel equal to its plain "
+        f"version's on the card, and on the card and the CPU; verdicts "
+        f"{sum(v == '+' for v in scalar)} +, {sum(v == '-' for v in scalar)} -, "
         f"{sum(v == '?' for v in scalar)} ? as the scalar route's")
-    pairs = sum(int(p.shape[0]) * int(p.shape[1]) * (int(p.shape[1]) - 1) // 2
-                for p, _ in batches)
-    say(f"   the op on the card {op_ms:.3f} ms for {len(batches)} batches of {pairs} padded "
-        f"pairs (CUDA events); with the host's packing and copies {card_s:.3f} s; the same op "
-        f"on the CPU {cpu_s:.3f} s; the host scalar route {scalar_s:.3f} s")
-    say(f"   the op's device time by kernel (torch.profiler, one pass): {split}")
+    pairs = sum(n * (n - 1) // 2 for n in lengths)
+    padded = sum(int(p.shape[0]) * int(p.shape[1]) * (int(p.shape[1]) - 1) // 2
+                 for p, _ in batches)
+    out = {"ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": err, "library_ms": None,
+           **bound(8 * sum(p.numel() + n.numel() for p, n in batches),
+                   MK_OPS_PER_PAIR * pairs)}
+    say(f"   {pairs} pairs in the runs ({padded} padded); the S kernel {kernel_ms:.3f} ms for "
+        f"{len(batches)} batches, the op with its argument checks {op_ms:.3f} ms, the plain "
+        f"version {plain_ms:.3f} ms (CUDA events); bound {out['bound_ms']:.4f} ms by "
+        f"{out['bound_by']} ({MK_OPS_PER_PAIR} a pair at {PEAK_OPS_S:.3g} a second); with the "
+        f"host's packing and copies {card_s:.3f} s; the plain version on the CPU "
+        f"{cpu_s:.3f} s; the host scalar route {scalar_s:.3f} s")
+    return out
 
 
 # -- phase 8 and phase C: end to end ---------------------------------------------------
@@ -1452,14 +1519,16 @@ def main() -> int:
     counts["copy"] = prof()["copy"]  # the profiler is the copy kernel's main path
     graph()
     general_path = general()
-    mann_kendall()
+    times["stream"] = general_path["stream"]
+    times["mk_s"] = mann_kendall()
     sizes = [24_000_000, 22_000_000, 20_000_000, 18_000_000, 16_000_000]
     run, _, dist_launches = e2e(sizes, contigs_target, then=distributed_phase)
     if run["host_records"] != 0:
         fail(f"{run['host_records']} records took the host sketcher")
     if run["flags"] != run["hash"]:
         fail(f"the e2e run's batches went round the flag kernel: {run}")
-    counts.update({name: run[name] for name in ("hash", "flags", "window_emit", "window")})
+    counts.update({name: run[name]
+                   for name in ("hash", "flags", "window_emit", "window", "stream")})
     # phase C: the same genome, an N-dense draft target, mkt=True
     draft, mk_run, _ = e2e(sizes, draft_target, ("mkt=True",), "e2e, N-dense draft, mkt=True")
     if draft["general_records"] < 1 or draft["host_records"]:
@@ -1467,6 +1536,7 @@ def main() -> int:
     _counted_route(draft, W, "e2e draft")
     if mk_run["device"] != "cuda" or mk_run["mk_runs"] < 1:
         fail(f"the Mann-Kendall op did not run on the card in the mkt=True run: {mk_run}")
+    counts["mk_s"] = draft["mk_s"]  # the mkt=True run is the S kernel's main path
     bound_records()
     mesh_launches = mesh_phase(smi)
 

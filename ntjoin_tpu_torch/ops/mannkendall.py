@@ -19,11 +19,18 @@ tie only with pads; G then needs one comparison and one sum a pair, no mask
 outside the diagonal blocks, and E and the tie correction come from one sort
 of each row.  Pairs are blocked over i, as in the original, with the block
 sized from B and L so that a live (B, block, L) boolean tensor stays within
-``BLOCK_BYTES``.
+``BLOCK_BYTES``: that is the plain version, ``mk_s_batch_ref``.
+
+On a CUDA tensor ``mk_s_batch`` launches a kernel (``csrc/mannkendall.cu``)
+that counts the pairs in registers, tile pair by tile pair, with no boolean
+tensor and no sort; its launches count in ``sketch_cuda.COUNTS["mk_s"]``,
+the plain version's calls in ``["mk_s_plain"]``.
 """
 from __future__ import annotations
 
 import torch
+
+from ntjoin_tpu_torch.ops import sketch_cuda as sc
 
 # Bytes of one live (B, block, L) boolean comparison tensor.
 BLOCK_BYTES = 1 << 26
@@ -61,10 +68,10 @@ def _prepare(positions: torch.Tensor, lengths: torch.Tensor):
     return pos, lengths, last - first + 1, idx - first, valid
 
 
-def mk_s_batch(positions: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Exact Mann-Kendall S of each padded row: positions (B, L) integers,
-    valid before ``lengths`` (B,); values past a row's length are ignored.
-    Returns int64 (B,) on the tensors' device."""
+def mk_s_batch_ref(positions: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Plain version of the S kernel: exact Mann-Kendall S of each padded
+    row of ``mk_s_batch``'s arguments, by blocked boolean comparisons."""
+    sc.add_count("mk_s_plain")
     pos, lengths, _, offset, valid = _prepare(positions, lengths)
     b, n = pos.shape
     step = max(1, min(n, BLOCK_BYTES // max(b * n, 1)))
@@ -77,10 +84,69 @@ def mk_s_batch(positions: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         greater += ((pos[:, None, i0:i1] > xi) & upper).sum(dim=(1, 2))
     greater -= lengths * (n - lengths)  # each valid element before every pad
     tied = torch.where(valid, offset, 0).sum(dim=1)
-    COUNTS["mk_batches"] += 1
-    COUNTS["mk_runs"] += b
-    COUNTS["device"] = pos.device.type
     return 2 * greater - lengths * (lengths - 1) // 2 + tied
+
+
+# Thread blocks of the S kernel: 256 threads; past ``MK_MAX_BLOCKS`` each
+# block walks items a grid apart.
+MK_THREADS = 256
+MK_MAX_BLOCKS = 1 << 20
+
+
+def mk_launch(b: int, width: int) -> tuple[int, int, int]:
+    """(tile, tile pairs a row, thread blocks) of the S kernel on a (b,
+    width) batch: a tile is 256 values, or the least of 32, 64, 128 that
+    holds a whole row; a row of nt tiles has nt (nt + 1) / 2 pairs ti <= tj,
+    numbered p = tj (tj + 1) / 2 + ti; a block takes ``MK_THREADS // tile``
+    (row, pair) items."""
+    tile = next((t for t in (32, 64, 128) if width <= t), 256)
+    nt = -(-width // tile)
+    pairs = nt * (nt + 1) // 2
+    return tile, pairs, min(MK_MAX_BLOCKS, -(-b * pairs // (MK_THREADS // tile)))
+
+
+def _check_batch(positions: torch.Tensor, lengths: torch.Tensor) -> None:
+    if positions.dtype != torch.int64 or positions.dim() != 2:
+        raise ValueError(f"mk_s_batch: want int64 positions (B, W), got {positions.dtype} "
+                         f"{tuple(positions.shape)}")
+    if lengths.dtype != torch.int64 or tuple(lengths.shape) != positions.shape[:1]:
+        raise ValueError(f"mk_s_batch: want int64 lengths ({positions.shape[0]},), got "
+                         f"{lengths.dtype} {tuple(lengths.shape)}")
+    if lengths.device != positions.device:
+        raise ValueError(f"lengths on {lengths.device}, positions on {positions.device}")
+    if lengths.numel():
+        lo, hi = (int(v) for v in torch.aminmax(lengths))
+        if lo < 0 or hi > positions.shape[1]:
+            raise ValueError(f"mk_s_batch: lengths in [{lo}, {hi}], want [0, "
+                             f"{positions.shape[1]}]")
+
+
+def mk_s_batch(positions: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Exact Mann-Kendall S of each padded row: positions (B, W) int64,
+    valid before ``lengths`` (B,) int64 (each in [0, W]); values past a
+    row's length are ignored.  Returns int64 (B,) on the tensors' device:
+    the S kernel for CUDA tensors, ``mk_s_batch_ref`` for CPU ones."""
+    _check_batch(positions, lengths)
+    COUNTS["mk_batches"] += 1
+    COUNTS["mk_runs"] += positions.shape[0]
+    COUNTS["device"] = positions.device.type
+    if not sc._on_cuda(positions):
+        return mk_s_batch_ref(positions, lengths)
+    return _mk_s_kernel(positions.contiguous(), lengths.contiguous())
+
+
+def _mk_s_kernel(positions: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """The S kernel on checked contiguous CUDA tensors."""
+    b, width = positions.shape
+    s = torch.zeros(b, dtype=torch.int64, device=positions.device)
+    if b == 0 or width < 2:
+        return s
+    tile, _, blocks = mk_launch(b, width)
+    with torch.cuda.device(positions.device):
+        err = sc._lib().nj_mk_s(positions.data_ptr(), b, width, lengths.data_ptr(), tile,
+                                blocks, s.data_ptr(), sc._stream(positions))
+    sc._launched(err, "mk_s")
+    return s
 
 
 def mann_kendall_batch(positions: torch.Tensor, lengths: torch.Tensor, alpha: float = 0.05):

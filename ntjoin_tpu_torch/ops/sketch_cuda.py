@@ -69,11 +69,16 @@ LIB_PATH = os.path.join(_PKG, "_build", "libntjoin_cuda.so")
 # (``ops/sketch_records.py``), and runs of the exact window path.  Plain
 # counters so that a run can show which code served it; ``reset_counts``
 # zeroes them.  The sketch runs ``hash``, ``flags``, one of the two
-# window/emission routes and ``window``; the copy (``ops/membw.py``) serves
-# the profiler.  ``add_count`` adds under a lock: a mesh of several devices
-# sketches from a thread a device (``parallel/mesh.py``).
-KERNELS = ("hash", "flags", "window_emit", "window_emit_gmem", "window", "copy")
-_OPS = ("hash", "flags", "window_emit", "window", "copy")  # each has one plain version
+# window/emission routes and ``window``, and the general path also
+# ``stream``, its compaction (``ops/sketch_general.py``, four launches a
+# batch); the copy (``ops/membw.py``) serves the profiler, ``mk_s`` the
+# Mann-Kendall S of ``mkt=True`` (``ops/mannkendall.py``).  ``add_count``
+# adds under a lock: a mesh of several devices sketches from a thread a
+# device (``parallel/mesh.py``).
+KERNELS = ("hash", "flags", "window_emit", "window_emit_gmem", "window", "copy", "stream",
+           "mk_s")
+# each has one plain version
+_OPS = ("hash", "flags", "window_emit", "window", "copy", "stream", "mk_s")
 COUNTS: dict[str, int] = {}
 COUNT_LOCK = threading.Lock()
 
@@ -201,6 +206,12 @@ def _lib():
             "nj_window": [p, i64, i64, i32, i64, p, i64, i32, i32, p, p],
             "nj_flags": [p, i64, i64, i64, i32, i64, i32, p, i64, p],
             "nj_copy": [p, p, i64, p],
+            "nj_stream_count": [p, i64, i64, i64, i64, i64, p, i64, i32, i64, p, p],
+            "nj_stream_gather": [p, i64, p, i64, i64, i64, i64, i64, p, i64, i32, i64, p, p, p,
+                                 p],
+            "nj_stream_chunks": [p, p, i64, i64, i64, i32, p, i64, p, i64, p],
+            "nj_stream_pos": [p, i64, i64, i64, i64, i64, p, i64, i32, i64, p, p, p],
+            "nj_mk_s": [p, i64, i64, p, i32, i64, p, p],
             "nj_noop": [p],
         }
         for name, args in sigs.items():

@@ -10,31 +10,36 @@ stream:
 1. Hash (``sketch_cuda.hash_chunked``) the batch's codes in the chunk layout
    ``layout(n, k, w)`` with k - 1 rows of lead-in and no window halo: the
    canonical hash and valid flag of every k-mer.
-2. Keep the valid k-mers and one dead slot between records: the k-mer that
-   starts on the last separator base before each record after the first,
-   which is never valid.  ``torch.nonzero`` of that mask gives the genomic
-   position of every stream rank in order (``valid_positions``), and
-   ``torch.take`` of the hashes through a strided view in genomic order
-   gathers the stream's hashes (``gather_stream``).  The stream's valid
-   flags are 1 except at the dead slots (``stream_valid``), so no valid
+2-3. Compaction (``stream_batch``): keep the valid k-mers and one dead
+   slot between records, the k-mer that starts on the last separator base
+   before each record after the first, which is never valid; lay the kept
+   k-mers out by rank (the stream) in ``layout(S, 1, w)`` chunks (pitched,
+   L + w - 1 rows, no lead-in, so ``off`` is 0), hashes ``hs`` and valid
+   flags ``vs``, and give the genomic position of every rank (``pos``).
+   The stream's valid flags are 1 except at the dead slots, so no valid
    window crosses a record and each record's first window follows an
    invalid one: the flag kernel gives exactly the JAX masks ``wvalid`` /
    ``wfirst`` (:1619-1642, :1681-1694), bit0 a window inside one record,
-   bit1 its first window.
-3. The stream laid out in ``layout(S, 1, w)`` chunks (``stream_chunks``:
-   pitched, L + w - 1 rows, no lead-in, so ``off`` is 0).
+   bit1 its first window.  On the card this is the compaction kernel
+   (``csrc/stream.cu``): a count pass over segments of the hash layout's
+   columns, a scan of the counts and one sync for S, then a pass that
+   writes the chunks and, once the hash layout is freed, one that writes
+   the positions; each launch counts in ``sketch_cuda.COUNTS["stream"]``.
+   Its plain version (``stream_batch`` on a CPU tensor) takes the positions by
+   ``torch.nonzero`` (``valid_positions``), gathers the hashes by
+   ``torch.take`` through a strided view (``gather_stream``), and copies
+   the flat stream into chunks (``stream_valid``, ``stream_chunks``).
 4. ``sketch_cuda.window_stream``: flags, window/emission (tiles or the
    device-memory route by w), compaction, the exact kernel for overflowed
    chunks; the emitted ranks decode to positions by one gather.
 
 The TPU design re-chunks through per-segment inverse maps and a static
 segment bound (``cap_seg``, ``_seg_cap`` :1718) because a TPU scatter costs
-a fixed ~80 ms; on a GPU a gather is an ordinary pass, so the stream is
-built by rank directly and there is no segment count to check.  Each
-intermediate is freed as soon as the next step has what it needs, so that
-the peak stays under ``sketch_records.GENERAL_BYTES_PER_BASE``.  Every step
-runs on the records' device; on a CPU tensor, or with ``plain``, the ops'
-plain versions serve.
+a fixed ~80 ms; on a GPU a kept k-mer is written at its rank directly and
+there is no segment count to check.  Each intermediate is freed as soon as
+the next step has what it needs, so that the peak stays under
+``sketch_records.GENERAL_BYTES_PER_BASE``.  Every step runs on the records'
+device; on a CPU tensor, or with ``plain``, the ops' plain versions serve.
 """
 from __future__ import annotations
 
@@ -54,17 +59,48 @@ def sketch_general_torch(flat: torch.Tensor, n: int, starts: torch.Tensor, k: in
 
     Returns (positions in flat, canonical hashes) of every emission, int64,
     ascending.  ``slot_cap`` and ``plain`` as for ``sketch_fused_torch``."""
-    h, val, L = hash_batch(flat, n, k, w, plain)
-    pos = valid_positions(val, L, n, starts, k)
-    del val
-    hflat, Ls = gather_stream(h, pos, L, k, w)
-    del h
-    size = hflat.shape[0]
-    hs = stream_chunks(hflat, Ls, w)
-    del hflat
-    vs = stream_chunks(stream_valid(pos, starts, size), Ls, w)
+    hs, vs, Ls, pos = stream_batch(flat, n, starts, k, w, plain)
     ranks, canon = sc.window_stream(hs, vs, Ls, w, 0, slot_cap, plain)
     return pos[ranks], canon
+
+
+def stream_batch(flat: torch.Tensor, n: int, starts: torch.Tensor, k: int, w: int,
+                 plain: bool = False) -> tuple[torch.Tensor, torch.Tensor, int, torch.Tensor]:
+    """Steps 1-3 on ``sketch_general_torch``'s arguments: the stream's
+    hashes ``hs`` (int64) and valid flags ``vs`` (int8) as ``pitched``
+    (Ls + w - 1, Cs) chunks of ``layout(S, 1, w)``, chunk c's row r the
+    stream's element c*Ls + r (all-ones / 0 past S), Ls, and the int64
+    genomic position ``pos`` of each of the S ranks.  The compaction kernel
+    for a CUDA tensor, its plain version (``valid_positions``,
+    ``gather_stream``, ``stream_valid``, ``stream_chunks``) for a CPU one or
+    with ``plain``; each frees what it no longer needs."""
+    if flat.dtype != torch.int8 or flat.dim() != 1:
+        raise ValueError(f"stream_batch: want an int8 stream, got {flat.dtype} "
+                         f"{tuple(flat.shape)}")
+    if (starts.dtype != torch.int64 or starts.dim() != 1 or starts.numel() < 1
+            or not starts.is_contiguous()):
+        raise ValueError(f"stream_batch: want contiguous int64 record starts (R,), R >= 1, "
+                         f"got {starts.dtype} {tuple(starts.shape)}")
+    if starts.device != flat.device:
+        raise ValueError(f"starts on {starts.device}, stream on {flat.device}")
+    h, val, L = hash_batch(flat, n, k, w, plain)
+    if plain or not sc._on_cuda(flat):
+        # the plain version of the compaction kernel
+        sc.add_count("stream_plain")
+        pos = valid_positions(val, L, n, starts, k)
+        del val
+        hflat, Ls = gather_stream(h, pos, L, k, w)
+        del h
+        size = hflat.shape[0]
+        hs = stream_chunks(hflat, Ls, w)
+        del hflat
+        return hs, stream_chunks(stream_valid(pos, starts, size), Ls, w), Ls, pos
+    firsts, S = first_ranks(_count(val, L, n, starts, k))
+    hflat, vflat = _gather(h, val, L, n, starts, k, firsts, S)
+    del h  # every kept hash is in hflat
+    hs, vs, Ls = _chunks(hflat, vflat, w)
+    del hflat, vflat
+    return hs, vs, Ls, _positions(val, L, n, starts, k, firsts, S)
 
 
 def hash_batch(flat: torch.Tensor, n: int, k: int, w: int,
@@ -124,3 +160,100 @@ def stream_chunks(x: torch.Tensor, Ls: int, w: int) -> torch.Tensor:
     out = sc.pitched(rows, Cs, x.dtype, x.device)
     out.copy_(sc._chunk_view(x, Ls, Cs, rows))
     return out
+
+
+# Rows of a column that one thread of the compaction kernel walks
+# (csrc/stream.cu): a segment, whose kept k-mers the count pass counts.
+STREAM_SEG = 1024
+
+
+def stream_segments(L: int) -> int:
+    """Segments of ``STREAM_SEG`` rows in a column of L rows."""
+    return -(-L // STREAM_SEG)
+
+
+def segment_counts_ref(val: torch.Tensor, L: int, n: int, starts: torch.Tensor,
+                       k: int) -> torch.Tensor:
+    """Plain version of the count pass: int32 (C * nseg,), entry c*nseg + s
+    the kept positions (``valid_positions``) among rows [s, s + 1) *
+    ``STREAM_SEG`` of column c."""
+    C, nseg = val.shape[1], stream_segments(L)
+    keep = torch.zeros(C * L, dtype=torch.int32, device=val.device)
+    keep.view(C, L).copy_(val[k - 1 : k - 1 + L].t())
+    keep[n - k + 1 :] = 0
+    keep[starts[1:] - 1] = 1
+    cols = torch.zeros((C, nseg * STREAM_SEG), dtype=torch.int32, device=val.device)
+    cols[:, :L] = keep.view(C, L)
+    return cols.view(C, nseg, STREAM_SEG).sum(2, dtype=torch.int32).flatten()
+
+
+def first_ranks(counts: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(the rank of each segment's first kept position, int64: the exclusive
+    prefix sum of the count pass's ``counts``; S, the stream's length).
+    Reading S is the compaction's one sync."""
+    incl = counts.cumsum(0, dtype=torch.int64)
+    return incl - counts, int(incl[-1])
+
+
+def _layout_args(val: torch.Tensor, L: int, n: int, starts: torch.Tensor, k: int) -> tuple:
+    """The compaction kernel's view of the hash layout: flags and their
+    pitch, lead-in rows, L, C, k-mer starts, record starts, segments."""
+    if not sc._on_cuda(val):
+        raise ValueError("the compaction kernel's passes take CUDA tensors (stream_batch "
+                         "takes the plain version for CPU ones)")
+    sc._check_rows(val, torch.int8, tuple(val.shape), "compaction val")
+    return (val.data_ptr(), val.stride(0), k - 1, L, val.shape[1], n - k + 1,
+            starts.data_ptr(), starts.shape[0], STREAM_SEG, stream_segments(L))
+
+
+def _count(val: torch.Tensor, L: int, n: int, starts: torch.Tensor, k: int) -> torch.Tensor:
+    """The count pass on the card: ``segment_counts_ref``'s counts."""
+    args = _layout_args(val, L, n, starts, k)
+    counts = torch.empty(val.shape[1] * args[-1], dtype=torch.int32, device=val.device)
+    with torch.cuda.device(val.device):
+        err = sc._lib().nj_stream_count(*args, counts.data_ptr(), sc._stream(val))
+    sc._launched(err, "stream")
+    return counts
+
+
+def _gather(h: torch.Tensor, val: torch.Tensor, L: int, n: int, starts: torch.Tensor, k: int,
+            firsts: torch.Tensor, S: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gather pass on the card: the stream's hashes and valid flags in
+    rank order, int64 and int8 (S,)."""
+    args = _layout_args(val, L, n, starts, k)
+    sc._check_rows(h, torch.int64, tuple(val.shape), "compaction h")
+    hflat = torch.empty(S, dtype=torch.int64, device=h.device)
+    vflat = torch.empty(S, dtype=torch.int8, device=h.device)
+    with torch.cuda.device(h.device):
+        err = sc._lib().nj_stream_gather(h.data_ptr(), h.stride(0), *args, firsts.data_ptr(),
+                                         hflat.data_ptr(), vflat.data_ptr(), sc._stream(h))
+    sc._launched(err, "stream")
+    return hflat, vflat
+
+
+def _chunks(hflat: torch.Tensor, vflat: torch.Tensor,
+            w: int) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The chunks pass on the card: (hs, vs, Ls) of ``stream_batch`` from
+    the stream in rank order."""
+    S = hflat.shape[0]
+    Cs, Ls = sc.layout(S, 1, w)
+    hs = sc.pitched(Ls + w - 1, Cs, torch.int64, hflat.device)
+    vs = sc.pitched(Ls + w - 1, Cs, torch.int8, hflat.device)
+    with torch.cuda.device(hflat.device):
+        err = sc._lib().nj_stream_chunks(hflat.data_ptr(), vflat.data_ptr(), S, Ls, Cs, w,
+                                         hs.data_ptr(), hs.stride(0), vs.data_ptr(),
+                                         vs.stride(0), sc._stream(hflat))
+    sc._launched(err, "stream")
+    return hs, vs, Ls
+
+
+def _positions(val: torch.Tensor, L: int, n: int, starts: torch.Tensor, k: int,
+               firsts: torch.Tensor, S: int) -> torch.Tensor:
+    """The positions pass on the card: ``pos`` of ``stream_batch``."""
+    args = _layout_args(val, L, n, starts, k)
+    pos = torch.empty(S, dtype=torch.int64, device=val.device)
+    with torch.cuda.device(val.device):
+        err = sc._lib().nj_stream_pos(*args, firsts.data_ptr(), pos.data_ptr(),
+                                      sc._stream(val))
+    sc._launched(err, "stream")
+    return pos

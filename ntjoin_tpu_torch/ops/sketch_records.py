@@ -44,10 +44,12 @@ MAX_RECORD_BASES = (1 << 31) - (1 << 22)
 # Peak device memory of a batch in bytes a base, by path: the most that
 # max_memory_allocated rose over a sketch, over its bases (chip_smoke.py
 # phase D, one record of 2,143,289,344 bases, on an NVIDIA H100 80GB HBM3 at
-# 700 W): fused 11.44 (13.49 on a 50.8 Mbp batch of phase 5), general 25.05
-# (25.24 on phase A's 100 Mbp); rounded up.
+# 700 W): fused 11.44 (13.49 on a 50.8 Mbp batch of phase 5), rounded up;
+# general 20.13 (20.91 on phase A's 100 Mbp) since its compaction is a
+# kernel (25.05 before, then 26), plus the margin 26 gave that, 0.95,
+# rounded up.
 FUSED_BYTES_PER_BASE = 14
-GENERAL_BYTES_PER_BASE = 26
+GENERAL_BYTES_PER_BASE = 22
 
 
 def _stage(name: str, t0: float) -> float:

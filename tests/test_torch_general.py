@@ -9,6 +9,7 @@ import torch
 
 import ntjoin_tpu.ops.sketch_pallas as sp
 import ntjoin_tpu_torch.ops.sketch_cuda as sc
+import ntjoin_tpu_torch.ops.sketch_general as sg
 import ntjoin_tpu_torch.ops.sketch_records as sr
 from ntjoin_tpu.ops.nthash_np import sketch_codes
 from ntjoin_tpu_torch.ops.sketch_general import sketch_general_torch
@@ -190,3 +191,150 @@ def test_record_bound(monkeypatch, gib):
         assert sr.record_bound(card, True) == sr.record_bound(card) == sr.MAX_RECORD_BASES
     else:
         assert sr.record_bound(card, True) < sr.record_bound(card) < sr.MAX_RECORD_BASES
+
+
+def _pack(recs: list[np.ndarray], k: int, w: int):
+    """The records joined by exactly k - 1 invalid bases, as a batch is:
+    (stream, data bases, starts)."""
+    host, total, offsets = sr.pack_batch(recs, k, w)
+    return host, total, torch.from_numpy(offsets)
+
+
+def _stream_len(recs: list[np.ndarray], k: int, w: int) -> tuple[int, int, int]:
+    """(S, Cs, Ls) of the records' stream."""
+    host, total, starts = _pack(recs, k, w)
+    hs, _, Ls, pos = sg.stream_batch(host, total, starts, k, w)
+    return pos.shape[0], hs.shape[1], Ls
+
+
+def _edge_case(case: str, k: int, w: int) -> list[np.ndarray]:
+    """Records whose stream meets an edge of the compaction."""
+    rng = np.random.default_rng(len(case) * 100 + k)
+    if case == "S_multiple_of_Ls":
+        # lengthen one record until the stream fills its last chunk exactly
+        head = _dense(rng, 30_000, 50, 2)
+        for extra in range(1, 400):
+            recs = [head, _dense(np.random.default_rng(extra), 300 + extra, 41, 3)]
+            S, Cs, Ls = _stream_len(recs, k, w)
+            if Cs > 1 and S == Cs * Ls:
+                return recs
+        raise AssertionError("no length fills the last chunk")
+    if case == "S_below_w":  # fewer kept k-mers than a window, and fewer than w - 1
+        few = np.full(120, 4, np.uint8)
+        few[40 : 40 + k + 5] = rng.integers(0, 4, size=k + 5)
+        return [few, np.full(30, 4, np.uint8)]
+    if case == "only_invalid_kmers":  # an N every k - 1 bases: no valid k-mer
+        dead = rng.integers(0, 4, size=600).astype(np.uint8)
+        dead[:: k - 1] = 4
+        return [_dense(rng, 20_000, 97, 2), dead, _dense(rng, 15_000, 61)]
+    # valid bases up to both ends of each record: a window ends right at the
+    # k - 1 separator bases and the next record's first k-mer follows them
+    recs = [rng.integers(0, 4, size=n).astype(np.uint8)
+            for n in (15_000, w + k - 1, 9_000, 12_000)]
+    for c in recs:
+        c[c.shape[0] // 2] = 4
+    return recs
+
+
+@pytest.mark.parametrize("case", ["S_multiple_of_Ls", "S_below_w", "only_invalid_kmers",
+                                  "k_minus_1_separators"])
+@pytest.mark.parametrize("k,w", [(15, 10), (21, 37)])
+def test_general_stream_edges(monkeypatch, case, k, w):
+    """Streams at the compaction's edges, through the plain versions, against
+    the JAX package's batched Pallas sketch (which routes a record by its
+    own size rules, to its general path or its host sketcher) and the
+    oracle."""
+    recs = _edge_case(case, k, w)
+    S, Cs, Ls = _stream_len(recs, k, w)
+    if case == "S_multiple_of_Ls":
+        assert Cs > 1 and S == Cs * Ls
+    if case == "S_below_w":
+        assert S < w - 1 and Cs == 1
+    _general_only(monkeypatch)
+    want = [sketch_codes(c, k, w) for c in recs]
+    _assert_same(sp.sketch_records_pallas(recs, k, w, interpret=True), want)
+    sc.reset_counts()
+    got = sr.sketch_records_torch(recs, k, w, "cpu")
+    assert sc.COUNTS["general_batches"] == 1 and sc.COUNTS["host_records"] == 0
+    assert sc.COUNTS["stream_plain"] == int(sum(c.shape[0] for c in recs) + k - 1 >= w)
+    _assert_same(got, want)
+    if case == "only_invalid_kmers":
+        assert got[1].positions.shape[0] == 0
+
+
+def _chunked_stream(case: str, k: int, w: int):
+    recs = _edge_case(case, k, w)
+    host, total, starts = _pack(recs, k, w)
+    return host, total, starts, sg.hash_batch(host, total, k, w)
+
+
+@pytest.mark.parametrize("case", ["S_multiple_of_Ls", "only_invalid_kmers",
+                                  "k_minus_1_separators"])
+def test_stream_batch_layout(case):
+    """``stream_batch`` on the CPU (the plain version): every rank's hash
+    and flag in its chunk, at row r and in the halo of the chunk before,
+    all-ones and 0 past S; ``pos`` the kept positions; one plain call
+    counted and no launch."""
+    k, w = 15, 10
+    host, total, starts, (h, val, L) = _chunked_stream(case, k, w)
+    sc.reset_counts()
+    hs, vs, Ls, pos = sg.stream_batch(host, total, starts, k, w)
+    assert sc.COUNTS["stream_plain"] == 1 and sc.COUNTS["stream"] == 0
+    keep = val[k - 1 : k - 1 + L].t().reshape(-1)[: total - k + 1].clone()
+    dead = starts[1:] - 1
+    keep[dead] = 1
+    assert pos.tolist() == torch.nonzero(keep).flatten().tolist()
+    S = pos.shape[0]
+    Cs = hs.shape[1]
+    assert (Cs, Ls) == sc.layout(S, 1, w) and hs.shape[0] == Ls + w - 1
+    by_pos = h[k - 1 : k - 1 + L].t().reshape(-1)
+    flat_h = torch.full((Cs * Ls + w - 1,), -1, dtype=torch.int64)
+    flat_h[:S] = by_pos[pos]
+    flat_v = torch.zeros(Cs * Ls + w - 1, dtype=torch.int8)
+    flat_v[:S] = 1
+    flat_v[torch.searchsorted(pos, dead)] = 0
+    for c in range(Cs):
+        assert hs[:, c].tolist() == flat_h[c * Ls : c * Ls + Ls + w - 1].tolist(), c
+        assert vs[:, c].tolist() == flat_v[c * Ls : c * Ls + Ls + w - 1].tolist(), c
+
+
+@pytest.mark.parametrize("seg", [7, 32, 1024])
+def test_segment_counts_and_first_ranks(monkeypatch, seg):
+    """The count pass's plain version and the scan of its counts: each
+    segment's first rank is the count of kept positions before its first
+    row, and S is their total."""
+    monkeypatch.setattr(sg, "STREAM_SEG", seg)
+    k, w = 15, 10
+    host, total, starts, (h, val, L) = _chunked_stream("k_minus_1_separators", k, w)
+    _, _, _, pos = sg.stream_batch(host, total, starts, k, w)
+    counts = sg.segment_counts_ref(val, L, total, starts, k)
+    C, nseg = val.shape[1], sg.stream_segments(L)
+    assert counts.dtype == torch.int32 and counts.shape == (C * nseg,) and nseg * seg >= L
+    firsts, S = sg.first_ranks(counts)
+    assert S == pos.shape[0] and firsts.dtype == torch.int64
+    first_pos = torch.tensor([c * L + s * seg for c in range(C) for s in range(nseg)])
+    assert firsts.tolist() == torch.searchsorted(pos, first_pos).tolist()
+
+
+@pytest.mark.parametrize("flat,starts,what", [
+    (torch.zeros(100, dtype=torch.int32), torch.zeros(1, dtype=torch.int64), "int8 stream"),
+    (torch.zeros((2, 50), dtype=torch.int8), torch.zeros(1, dtype=torch.int64), "int8 stream"),
+    (torch.zeros(100, dtype=torch.int8), torch.zeros(1, dtype=torch.int32), "record starts"),
+    (torch.zeros(100, dtype=torch.int8), torch.zeros((1, 1), dtype=torch.int64),
+     "record starts"),
+    (torch.zeros(100, dtype=torch.int8), torch.zeros(0, dtype=torch.int64), "record starts"),
+    (torch.zeros(100, dtype=torch.int8), torch.zeros(4, dtype=torch.int64)[::2],
+     "record starts"),
+])
+def test_stream_batch_refuses(flat, starts, what):
+    with pytest.raises(ValueError, match=what):
+        sg.stream_batch(flat, 60, starts, 15, 10)
+
+
+def test_compaction_passes_want_the_card():
+    """The kernel's passes take no CPU tensor: ``stream_batch`` alone picks
+    the plain version, for a CPU tensor."""
+    k, w = 15, 10
+    host, total, starts, (h, val, L) = _chunked_stream("k_minus_1_separators", k, w)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sg._count(val, L, total, starts, k)

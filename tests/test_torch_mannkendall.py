@@ -6,6 +6,7 @@ the JAX package's and the scalar route.  S is an integer: exact; p and z of
 so they agree within float32 rounding (relative 1e-5), and with the scalar
 test's float64 within 1e-12."""
 import bisect
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +17,7 @@ from ntjoin_tpu.core import orientation as jax_orientation
 from ntjoin_tpu.ops import mannkendall as jax_mk
 from ntjoin_tpu_torch.core import orientation
 from ntjoin_tpu_torch.ops import mannkendall as mk
+from ntjoin_tpu_torch.ops import sketch_cuda as sc
 
 
 def _batch(seed: int, b: int = 40, n: int = 96):
@@ -134,3 +136,122 @@ def test_orientation_without_mkt_runs_no_op():
     got = orientation.determine_orientations(runs, False, 90, "cpu")
     assert got == jax_orientation.determine_orientations(runs, False, 90)
     assert mk.COUNTS["mk_batches"] == 0
+
+
+def _padded(runs: list[list[int]], width: int) -> tuple[np.ndarray, np.ndarray]:
+    """Rows padded with zeros past their lengths, as ``_mk_batches`` pads."""
+    pos = np.zeros((len(runs), width), np.int64)
+    for row, r in enumerate(runs):
+        pos[row, : len(r)] = r
+    return pos, np.array([len(r) for r in runs], np.int64)
+
+
+def _edge_rows(case: str) -> tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(len(case))
+    if case == "short":  # lengths 0, 1 and 2, rising, falling and tied
+        return _padded([[], [7], [3, 9], [9, 3], [4, 4], [5, 1, 5]], 8)
+    if case == "all_equal":
+        return _padded([[6] * n for n in (1, 2, 31, 32, 33, 256, 300)], 300)
+    if case == "zero_padding":  # one batch of _mk_batches: values past a length are 0
+        runs = [[int(v) for v in rng.integers(1, 40, size=n)] for n in (97, 100, 104, 98)]
+        (_, pos, lengths), = orientation._mk_batches(runs)
+        return pos, lengths
+    # one past a power of two: a lone row in the last tile of a row
+    lengths = [33, 65, 129, 257, 513, 1025]
+    return _padded([[int(v) for v in rng.integers(0, 500, size=n)] for n in lengths], 1025)
+
+
+@pytest.mark.parametrize("case", ["short", "all_equal", "zero_padding", "pow2_plus1"])
+def test_mk_s_batch_edges_match_jax(case):
+    """The rows the S kernel's tiling must meet, through the plain version,
+    against the JAX op and a count of the pairs one by one."""
+    pos, lengths = _edge_rows(case)
+    want = np.asarray(jax_mk.mk_s_batch(jnp.asarray(pos.astype(np.int32)),
+                                        jnp.asarray(lengths.astype(np.int32))))
+    got = mk.mk_s_batch(torch.from_numpy(pos), torch.from_numpy(lengths))
+    assert got.tolist() == want.tolist()
+    assert got.tolist() == [_s_by_insertion(pos[row, :n].tolist())
+                            for row, n in enumerate(lengths)]
+    if case in ("short", "all_equal"):
+        assert got[lengths < 2].tolist() == [0] * int((lengths < 2).sum())
+    if case == "all_equal":
+        assert got.tolist() == [0] * len(lengths)
+
+
+def test_mk_s_one_past_the_int32_bound():
+    """65,537 elements, one past the JAX op's bound and a power of two: the
+    plain version against the pairs counted one by one."""
+    rng = np.random.default_rng(12)
+    n = 65_537
+    x = rng.integers(0, 10**6, size=n)
+    x[: n // 2] = np.sort(x[: n // 2])
+    pos, lengths = _padded([x.tolist()], n)
+    got = mk.mk_s_batch(torch.from_numpy(pos), torch.from_numpy(lengths))
+    assert got.tolist() == [_s_by_insertion(x.tolist())]
+
+
+@pytest.mark.parametrize("positions,lengths,what", [
+    (np.zeros((2, 8), np.int32), np.array([8, 8]), "int64 positions"),
+    (np.zeros(8, np.int64), np.array([8]), "int64 positions"),
+    (np.zeros((2, 8), np.int64), np.array([8, 8], np.int32), "int64 lengths"),
+    (np.zeros((2, 8), np.int64), np.array([8, 8, 8]), "int64 lengths"),
+    (np.zeros((2, 8), np.int64), np.array([8, 9]), "lengths in"),
+    (np.zeros((2, 8), np.int64), np.array([-1, 3]), "lengths in"),
+])
+def test_mk_s_batch_refuses(positions, lengths, what):
+    with pytest.raises(ValueError, match=what):
+        mk.mk_s_batch(torch.from_numpy(positions), torch.from_numpy(lengths))
+
+
+def test_mk_s_batch_cpu_takes_the_plain_version():
+    pos, lengths = _edge_rows("short")
+    sc.reset_counts()
+    mk.mk_s_batch(torch.from_numpy(pos), torch.from_numpy(lengths))
+    assert sc.COUNTS["mk_s_plain"] == 1 and sc.COUNTS["mk_s"] == 0
+
+
+def _tile_pair(p: int) -> tuple[int, int]:
+    """(ti, tj) of tile pair p = tj (tj + 1) / 2 + ti by the S kernel's own
+    arithmetic: the root in float64, then corrected."""
+    t = int((math.sqrt(8.0 * p + 1.0) - 1.0) * 0.5)
+    while t * (t + 1) // 2 > p:
+        t -= 1
+    while (t + 1) * (t + 2) // 2 <= p:
+        t += 1
+    return p - t * (t + 1) // 2, t
+
+
+@pytest.mark.parametrize("width", [8, 32, 33, 100, 128, 129, 257, 1000, 4100])
+def test_mk_tiles_cover_every_pair_once(width):
+    """The (i-tile, j-tile) pairs of a row are each ti <= tj once, and with
+    the kernel's masks (a row's length, j > i on the diagonal) they hold
+    exactly n (n - 1) / 2 pairs for every length n up to the width."""
+    tile, pairs, blocks = mk.mk_launch(3, width)
+    nt = -(-width // tile)
+    tiles = [_tile_pair(p) for p in range(pairs)]
+    assert tiles == [(i, j) for j in range(nt) for i in range(j + 1)]  # in order, each once
+    assert blocks == -(-3 * pairs // (mk.MK_THREADS // tile))
+    assert tile == min(256, max(32, 1 << (width - 1).bit_length()))
+    for n in sorted({0, 1, 2, tile - 1, tile, tile + 1, width - 1, width}):
+        if not 0 <= n <= width:
+            continue
+        covered = 0
+        for ti, tj in tiles:
+            mi = min(max(n - ti * tile, 0), tile)  # the tile's i inside the row
+            mj = min(max(n - tj * tile, 0), tile)
+            covered += mi * (mi - 1) // 2 if ti == tj else mi * mj
+        assert covered == n * (n - 1) // 2, n
+
+
+@pytest.mark.parametrize("p", [0, 1, 2, 3, 5, 10**6, 2**40 + 12_345, 2**45 - 1])
+def test_mk_tile_pair_far_out(p):
+    """The float64 root lands on the exact pair as far as a row of 2^31
+    values at tiles of 256 reaches (p < 2^45)."""
+    ti, tj = _tile_pair(p)
+    assert 0 <= ti <= tj and tj * (tj + 1) // 2 + ti == p
+    assert tj == (math.isqrt(8 * p + 1) - 1) // 2
+
+
+def test_mk_launch_caps_the_grid():
+    tile, pairs, blocks = mk.mk_launch(2, 10_000_000)
+    assert tile == 256 and pairs == 39_063 * 39_064 // 2 and blocks == mk.MK_MAX_BLOCKS
