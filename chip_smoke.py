@@ -58,12 +58,13 @@ A. general  100 Mbp as 20 seeded draft scaffolds of 5 Mbp (the genome of
             overflowed chunks must take the exact kernel, and that run's
             launches are the general path's in the kernels line; the path's
             kernels against their plain versions on the same batch (the
-            compaction kernel's counts and its hs, vs, Ls and pos; the
-            exact kernel over the chunks that overflowed); CUDA-event times
-            of hash, compaction (its three passes, and its plain version),
-            flags, window/emission and the call, the plain compaction by
-            torch op (torch.profiler), peak bytes a base; a slot_cap=2 run
-            as one more equality check
+            compaction kernel's tile counts and first ranks, its hs, vs and
+            Ls, and the positions it decodes for every rank and for the
+            emitted ones; the exact kernel over the chunks that overflowed);
+            CUDA-event times of hash, compaction (its passes and the
+            decode, and its plain version), flags, window/emission and the
+            call, the plain compaction by torch op (torch.profiler), peak
+            bytes a base; a slot_cap=2 run as one more equality check
 B. mk       the Mann-Kendall S (ops/mannkendall.py) of 4,096 runs of 2-2,048
             positions and two of 100,000: the S kernel bit-equal to its
             plain version on the card, and the op on the card to the CPU,
@@ -880,27 +881,37 @@ def general() -> dict[str, dict]:
                  sc.hash_chunked_ref(sc._chunk_view(flat, L, C, L + K - 1), K))
         _compare(f"general compaction, count pass (w={w})",
                  (sg._count(val, L, total, starts, K),),
-                 (sg.segment_counts_ref(val, L, total, starts, K),))
-        hs, vs, Ls, pos = sg.stream_batch(flat, total, starts, K, w)
-        p_hs, p_vs, p_Ls, p_pos = sg.stream_batch(flat, total, starts, K, w, plain=True)
+                 (sg.tile_counts_ref(val, L, total, starts, K),))
+        hs, vs, Ls, index = sg.stream_batch(flat, total, starts, K, w)
+        p_hs, p_vs, p_Ls, p_index = sg.stream_batch(flat, total, starts, K, w, plain=True)
         if Ls != p_Ls:
             fail(f"general compaction (w={w}): chunks of {Ls}, the plain version's {p_Ls}")
-        stream_err = _compare(f"general compaction (w={w})", (hs, vs, pos),
-                              (p_hs, p_vs, p_pos))
-        del p_hs, p_vs, p_pos
+        S = index.S
+        every = torch.arange(S, device=flat.device)
+        stream_err = _compare(f"general compaction, every rank decoded (w={w})",
+                              (hs, vs, index.firsts, sg.decode_ranks(index, every)),
+                              (p_hs, p_vs, p_index.firsts,
+                               sg.decode_ranks(p_index, every, plain=True)))
+        del p_hs, p_vs, p_index, every
+        ranks, _ = sc.window_stream(hs, vs, Ls, w, 0)
+        stream_err = max(stream_err, _compare(
+            f"general compaction, the {ranks.numel()} emitted ranks decoded (w={w})",
+            (sg.decode_ranks(index, ranks),), (sg.decode_ranks(index, ranks, plain=True),)))
 
         def compaction():
-            """The compaction kernel's passes on the batch's hash layout."""
+            """The compaction kernel's passes on the batch's hash layout, the
+            decode on this run's emitted ranks."""
             firsts, S = sg.first_ranks(sg._count(val, L, total, starts, K))
             chunks = sg._chunks(*sg._gather(h, val, L, total, starts, K, firsts, S), w)
-            return chunks, sg._positions(val, L, total, starts, K, firsts, S)
+            return chunks, sg._decode(sg.StreamIndex(val, firsts, L, total, K, starts), ranks)
 
         def compaction_plain():
             """The plain version's steps on the batch's hash layout."""
             pos = sg.valid_positions(val, L, total, starts, K)
             hflat, Ls = sg.gather_stream(h, pos, L, K, w)
             vflat = sg.stream_valid(pos, starts, hflat.shape[0])
-            return sg.stream_chunks(hflat, Ls, w), sg.stream_chunks(vflat, Ls, w), Ls, pos
+            return (sg.stream_chunks(hflat, Ls, w), sg.stream_chunks(vflat, Ls, w), Ls,
+                    pos[ranks])
 
         flags, _ = _flags(vs, Ls, w, 0, f"general, w={w}")
         cap = sc._slot_cap(Ls, w)
@@ -917,27 +928,28 @@ def general() -> dict[str, dict]:
                  sg.sketch_general_torch(flat, total, starts, K, w, plain=True))
         _compare(f"general path, slot_cap=2 (w={w})",
                  sg.sketch_general_torch(flat, total, starts, K, w, slot_cap=2), kern)
-        firsts, S = sg.first_ranks(sg._count(val, L, total, starts, K))
+        firsts = index.firsts
         hflat, vflat = sg._gather(h, val, L, total, starts, K, firsts, S)
         t = {"hash": _time_ms(lambda: sg.hash_batch(flat, total, K, w), 3),
              "compaction": _time_ms(compaction, 5),
              "compaction_plain": _time_ms(compaction_plain, 3),
              "count pass, scan and sync": _time_ms(
                  lambda: sg.first_ranks(sg._count(val, L, total, starts, K)), 5),
+             "count pass": _time_queued_ms(lambda: sg._count(val, L, total, starts, K), 20),
              "gather pass": _time_ms(
                  lambda: sg._gather(h, val, L, total, starts, K, firsts, S), 5),
              "chunks pass": _time_ms(lambda: sg._chunks(hflat, vflat, w), 5),
-             "positions pass": _time_ms(
-                 lambda: sg._positions(val, L, total, starts, K, firsts, S), 5),
+             "decode pass": _time_queued_ms(lambda: sg._decode(index, ranks), 20),
              "flags": _time_ms(lambda: sc.window_flags(vs, Ls, w, 0), 5),
              "window_emit": _time_ms(lambda: sc.window_emit(hs, flags, Ls, w, 0, cap), 5),
              "call": _time_ms(lambda: sg.sketch_general_torch(flat, total, starts, K, w), 3)}
         say(f"   w={w}: kernels bit-equal to their plain versions on the batch (hash: C={C} "
-            f"chunks of L={L}; the compaction's counts of {sg.stream_segments(L)} segments a "
-            f"column, and its stream of {pos.shape[0]} k-mers and dead slots: C={hs.shape[1]} "
-            f"chunks of L={Ls}, positions; the exact kernel over the {over.numel()} chunks "
+            f"chunks of L={L}; the compaction's counts of {sg.stream_tiles(L)} tiles a "
+            f"column and their first ranks, its stream of {S} k-mers and dead slots: "
+            f"C={hs.shape[1]} chunks of L={Ls}, and the positions of every rank and of the "
+            f"{ranks.numel()} emitted ones; the exact kernel over the {over.numel()} chunks "
             f"that overflowed {cap} slots; the whole call, and with slot_cap=2)")
-        say(f"   w={w} times (CUDA events): " + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items())
+        say(f"   w={w} times (CUDA events): " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
             + f"; {total / t['call'] / 1e6:.2f} Gbases/s")
         if w == W:
             view = sc._chunk_view(flat, L, C, L + K - 1)
@@ -946,11 +958,13 @@ def general() -> dict[str, dict]:
                 "hash": {"ms": t["hash"], **bound(flat.numel() + 9 * (L + K - 1) * C,
                                                   12 * (L + K - 1) * C),
                          "plain_ms": _time_ms(lambda: sc.hash_chunked_ref(view, K), 1)},
-                # the flags read once, the kept hashes and the starts; chunks and positions
+                # the flags read once, the kept hashes and the starts; the tile first
+                # ranks; chunks with their halo; the emitted ranks and their positions
                 "stream": {"ms": t["compaction"], "plain_ms": t["compaction_plain"],
                            "max_abs_err": stream_err, "library_ms": None,
-                           **bound(total - K + 1 + 8 * S + 8 * starts.numel() + 8 * S
-                                   + 9 * (Ls + w - 1) * Cs, 0)},
+                           **bound(total - K + 1 + 8 * S + 8 * starts.numel()
+                                   + 8 * firsts.numel() + 9 * (Ls + w - 1) * Cs
+                                   + 16 * ranks.numel(), 0)},
                 "flags": _flag_times(vs, Ls, w, 0),
                 "window_emit": {"ms": t["window_emit"], **_emit_bound(Ls, Cs, w, cap),
                                 "plain_ms": _time_ms(lambda: sc.window_emit_ref(
@@ -969,7 +983,7 @@ def general() -> dict[str, dict]:
                     f"({r['bound_bytes']} bytes); {r['launches']} launches in the run")
             say("   the plain compaction's device time by kernel (torch.profiler, one call): "
                 + _kernel_split(compaction_plain))
-        del h, val, hs, vs, pos, flags, flat, host, kern, hflat, vflat
+        del h, val, hs, vs, index, firsts, ranks, flags, flat, host, kern, hflat, vflat
     return out
 
 

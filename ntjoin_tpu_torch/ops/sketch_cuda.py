@@ -71,8 +71,9 @@ LIB_PATH = os.path.join(_PKG, "_build", "libntjoin_cuda.so")
 # zeroes them.  The sketch runs ``hash``, ``flags``, one of the two
 # window/emission routes and ``window``, and the general path also
 # ``stream``, its compaction (``ops/sketch_general.py``, four launches a
-# batch); the copy (``ops/membw.py``) serves the profiler, ``mk_s`` the
-# Mann-Kendall S of ``mkt=True`` (``ops/mannkendall.py``).  ``add_count``
+# batch: count, gather, chunks, decode); the copy (``ops/membw.py``) serves
+# the profiler, ``mk_s`` the Mann-Kendall S of ``mkt=True``
+# (``ops/mannkendall.py``).  ``add_count``
 # adds under a lock: a mesh of several devices sketches from a thread a
 # device (``parallel/mesh.py``).
 KERNELS = ("hash", "flags", "window_emit", "window_emit_gmem", "window", "copy", "stream",
@@ -206,11 +207,10 @@ def _lib():
             "nj_window": [p, i64, i64, i32, i64, p, i64, i32, i32, p, p],
             "nj_flags": [p, i64, i64, i64, i32, i64, i32, p, i64, p],
             "nj_copy": [p, p, i64, p],
-            "nj_stream_count": [p, i64, i64, i64, i64, i64, p, i64, i32, i64, p, p],
-            "nj_stream_gather": [p, i64, p, i64, i64, i64, i64, i64, p, i64, i32, i64, p, p, p,
-                                 p],
+            "nj_stream_count": [p, i64, i64, i64, i64, i64, p, i64, p, p],
+            "nj_stream_gather": [p, i64, p, i64, i64, i64, i64, i64, p, i64, p, p, p, p],
             "nj_stream_chunks": [p, p, i64, i64, i64, i32, p, i64, p, i64, p],
-            "nj_stream_pos": [p, i64, i64, i64, i64, i64, p, i64, i32, i64, p, p, p],
+            "nj_stream_decode": [p, i64, i64, i64, i64, i64, p, i64, p, p, i64, p, p],
             "nj_mk_s": [p, i64, i64, p, i32, i64, p, p],
             "nj_noop": [p],
         }

@@ -15,23 +15,30 @@ stream:
    before each record after the first, which is never valid; lay the kept
    k-mers out by rank (the stream) in ``layout(S, 1, w)`` chunks (pitched,
    L + w - 1 rows, no lead-in, so ``off`` is 0), hashes ``hs`` and valid
-   flags ``vs``, and give the genomic position of every rank (``pos``).
-   The stream's valid flags are 1 except at the dead slots, so no valid
-   window crosses a record and each record's first window follows an
-   invalid one: the flag kernel gives exactly the JAX masks ``wvalid`` /
-   ``wfirst`` (:1619-1642, :1681-1694), bit0 a window inside one record,
-   bit1 its first window.  On the card this is the compaction kernel
-   (``csrc/stream.cu``): a count pass over segments of the hash layout's
-   columns, a scan of the counts and one sync for S, then a pass that
-   writes the chunks and, once the hash layout is freed, one that writes
-   the positions; each launch counts in ``sketch_cuda.COUNTS["stream"]``.
-   Its plain version (``stream_batch`` on a CPU tensor) takes the positions by
-   ``torch.nonzero`` (``valid_positions``), gathers the hashes by
-   ``torch.take`` through a strided view (``gather_stream``), and copies
-   the flat stream into chunks (``stream_valid``, ``stream_chunks``).
+   flags ``vs``; and keep what maps a rank back to its genomic position
+   (``StreamIndex``: the hash layout's flags and the first rank of each
+   tile of ``STREAM_TILE`` rows of a column).  The stream's valid flags are
+   1 except at the dead slots, so no valid window crosses a record and each
+   record's first window follows an invalid one: the flag kernel gives
+   exactly the JAX masks ``wvalid`` / ``wfirst`` (:1619-1642, :1681-1694),
+   bit0 a window inside one record, bit1 its first window.  On the card this
+   is the compaction kernel (``csrc/stream.cu``): a count pass over the
+   tiles of the hash layout's columns, a scan of the counts and one sync for
+   S, then a pass that gathers the stream in rank order and one that writes
+   the chunks.
 4. ``sketch_cuda.window_stream``: flags, window/emission (tiles or the
    device-memory route by w), compaction, the exact kernel for overflowed
-   chunks; the emitted ranks decode to positions by one gather.
+   chunks.  Then ``decode_ranks`` maps the emitted ranks to their positions:
+   on the card the compaction kernel's fourth pass.  So a batch makes four
+   launches counted in ``sketch_cuda.COUNTS["stream"]``: count, gather,
+   chunks, decode (none for a batch that emits nothing).
+
+The plain version (a CPU tensor, or ``plain``) takes the positions of every
+rank by ``torch.nonzero`` (``valid_positions``), gathers the hashes by
+``torch.take`` through a strided view (``gather_stream``), copies the flat
+stream into chunks (``stream_valid``, ``stream_chunks``), finds each
+tile's first rank by ``searchsorted`` of the positions and decodes by
+``valid_positions(...)[ranks]``; ``tile_counts_ref`` is the count pass's.
 
 The TPU design re-chunks through per-segment inverse maps and a static
 segment bound (``cap_seg``, ``_seg_cap`` :1718) because a TPU scatter costs
@@ -43,9 +50,34 @@ device; on a CPU tensor, or with ``plain``, the ops' plain versions serve.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ntjoin_tpu_torch.ops import sketch_cuda as sc
+
+# Rows of a tile, a column's unit of the compaction kernel (csrc/stream.cu):
+# the kept rows of a tile are one 32-bit mask.
+STREAM_TILE = 32
+
+
+class StreamIndex(NamedTuple):
+    """What maps a stream rank back to its genomic position: the hash
+    layout's valid flags ``val`` ((k - 1 + L, C), k - 1 rows of lead-in), the
+    records' ``starts``, and ``firsts``, int64 (C*T + 1,) with T =
+    ``stream_tiles(L)``: the rank of the first kept position of each tile,
+    entry c*T + t for rows [t, t + 1) * ``STREAM_TILE`` of column c, then S."""
+    val: torch.Tensor
+    firsts: torch.Tensor
+    L: int
+    n: int
+    k: int
+    starts: torch.Tensor
+
+    @property
+    def S(self) -> int:
+        """The stream's length (a sync on the card)."""
+        return int(self.firsts[-1])
 
 
 def sketch_general_torch(flat: torch.Tensor, n: int, starts: torch.Tensor, k: int, w: int,
@@ -59,21 +91,23 @@ def sketch_general_torch(flat: torch.Tensor, n: int, starts: torch.Tensor, k: in
 
     Returns (positions in flat, canonical hashes) of every emission, int64,
     ascending.  ``slot_cap`` and ``plain`` as for ``sketch_fused_torch``."""
-    hs, vs, Ls, pos = stream_batch(flat, n, starts, k, w, plain)
+    hs, vs, Ls, index = stream_batch(flat, n, starts, k, w, plain)
     ranks, canon = sc.window_stream(hs, vs, Ls, w, 0, slot_cap, plain)
-    return pos[ranks], canon
+    del hs, vs
+    return decode_ranks(index, ranks, plain), canon
 
 
 def stream_batch(flat: torch.Tensor, n: int, starts: torch.Tensor, k: int, w: int,
-                 plain: bool = False) -> tuple[torch.Tensor, torch.Tensor, int, torch.Tensor]:
+                 plain: bool = False) -> tuple[torch.Tensor, torch.Tensor, int, StreamIndex]:
     """Steps 1-3 on ``sketch_general_torch``'s arguments: the stream's
     hashes ``hs`` (int64) and valid flags ``vs`` (int8) as ``pitched``
     (Ls + w - 1, Cs) chunks of ``layout(S, 1, w)``, chunk c's row r the
-    stream's element c*Ls + r (all-ones / 0 past S), Ls, and the int64
-    genomic position ``pos`` of each of the S ranks.  The compaction kernel
-    for a CUDA tensor, its plain version (``valid_positions``,
-    ``gather_stream``, ``stream_valid``, ``stream_chunks``) for a CPU one or
-    with ``plain``; each frees what it no longer needs."""
+    stream's element c*Ls + r (all-ones / 0 past S), Ls, and the
+    ``StreamIndex`` that ``decode_ranks`` reads.  The compaction kernel for
+    a CUDA tensor, its plain version (``valid_positions``,
+    ``gather_stream``, ``stream_valid``, ``stream_chunks``, and the first
+    ranks by ``searchsorted``) for a CPU one or with ``plain``; each frees
+    what it no longer needs."""
     if flat.dtype != torch.int8 or flat.dim() != 1:
         raise ValueError(f"stream_batch: want an int8 stream, got {flat.dtype} "
                          f"{tuple(flat.shape)}")
@@ -88,19 +122,36 @@ def stream_batch(flat: torch.Tensor, n: int, starts: torch.Tensor, k: int, w: in
         # the plain version of the compaction kernel
         sc.add_count("stream_plain")
         pos = valid_positions(val, L, n, starts, k)
-        del val
         hflat, Ls = gather_stream(h, pos, L, k, w)
         del h
         size = hflat.shape[0]
         hs = stream_chunks(hflat, Ls, w)
         del hflat
-        return hs, stream_chunks(stream_valid(pos, starts, size), Ls, w), Ls, pos
+        vs = stream_chunks(stream_valid(pos, starts, size), Ls, w)
+        # each tile's first rank: the kept positions before its first row
+        rows = torch.arange(0, L, STREAM_TILE, device=pos.device)
+        first = (torch.arange(val.shape[1], device=pos.device)[:, None] * L + rows).flatten()
+        firsts = torch.cat([torch.searchsorted(pos, first), pos.new_tensor([pos.shape[0]])])
+        return hs, vs, Ls, StreamIndex(val, firsts, L, n, k, starts)
     firsts, S = first_ranks(_count(val, L, n, starts, k))
     hflat, vflat = _gather(h, val, L, n, starts, k, firsts, S)
     del h  # every kept hash is in hflat
     hs, vs, Ls = _chunks(hflat, vflat, w)
-    del hflat, vflat
-    return hs, vs, Ls, _positions(val, L, n, starts, k, firsts, S)
+    return hs, vs, Ls, StreamIndex(val, firsts, L, n, k, starts)
+
+
+def decode_ranks(index: StreamIndex, ranks: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """The genomic positions (int64) of the stream ranks ``ranks`` (int64,
+    each below S): the compaction kernel's decode pass for a CUDA tensor,
+    ``valid_positions(...)[ranks]`` for a CPU one or with ``plain``."""
+    if ranks.dtype != torch.int64 or ranks.dim() != 1:
+        raise ValueError(f"decode_ranks: want int64 ranks (E,), got {ranks.dtype} "
+                         f"{tuple(ranks.shape)}")
+    if ranks.device != index.val.device:
+        raise ValueError(f"ranks on {ranks.device}, stream index on {index.val.device}")
+    if plain or not sc._on_cuda(ranks):
+        return valid_positions(index.val, index.L, index.n, index.starts, index.k)[ranks]
+    return _decode(index, ranks)
 
 
 def hash_batch(flat: torch.Tensor, n: int, k: int, w: int,
@@ -162,54 +213,64 @@ def stream_chunks(x: torch.Tensor, Ls: int, w: int) -> torch.Tensor:
     return out
 
 
-# Rows of a column that one thread of the compaction kernel walks
-# (csrc/stream.cu): a segment, whose kept k-mers the count pass counts.
-STREAM_SEG = 1024
+def stream_tiles(L: int, rows: int = STREAM_TILE) -> int:
+    """Tiles of ``rows`` rows in a column of L rows."""
+    return -(-L // rows)
 
 
-def stream_segments(L: int) -> int:
-    """Segments of ``STREAM_SEG`` rows in a column of L rows."""
-    return -(-L // STREAM_SEG)
-
-
-def segment_counts_ref(val: torch.Tensor, L: int, n: int, starts: torch.Tensor,
-                       k: int) -> torch.Tensor:
-    """Plain version of the count pass: int32 (C * nseg,), entry c*nseg + s
-    the kept positions (``valid_positions``) among rows [s, s + 1) *
-    ``STREAM_SEG`` of column c."""
-    C, nseg = val.shape[1], stream_segments(L)
-    keep = torch.zeros(C * L, dtype=torch.int32, device=val.device)
+def tile_counts_ref(val: torch.Tensor, L: int, n: int, starts: torch.Tensor, k: int,
+                    rows: int = STREAM_TILE) -> torch.Tensor:
+    """Plain version of the count pass: int64 (C*T + 1,), T =
+    ``stream_tiles(L, rows)``: 0, then at 1 + c*T + t the kept positions
+    (``valid_positions``) among rows [t, t + 1) * ``rows`` of column c.  The
+    kernel's tiles are ``STREAM_TILE`` rows."""
+    C, T = val.shape[1], stream_tiles(L, rows)
+    keep = torch.zeros(C * L, dtype=torch.int64, device=val.device)
     keep.view(C, L).copy_(val[k - 1 : k - 1 + L].t())
     keep[n - k + 1 :] = 0
     keep[starts[1:] - 1] = 1
-    cols = torch.zeros((C, nseg * STREAM_SEG), dtype=torch.int32, device=val.device)
-    cols[:, :L] = keep.view(C, L)
-    return cols.view(C, nseg, STREAM_SEG).sum(2, dtype=torch.int32).flatten()
+    counts = torch.zeros(C * T + 1, dtype=torch.int64, device=val.device)
+    cols = counts[1:].view(C, T)
+    cols[:, : L // rows] = keep.view(C, L)[:, : L // rows * rows].view(C, -1, rows).sum(2)
+    if L % rows:
+        cols[:, -1] = keep.view(C, L)[:, L // rows * rows :].sum(1)
+    return counts
 
 
 def first_ranks(counts: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """(the rank of each segment's first kept position, int64: the exclusive
-    prefix sum of the count pass's ``counts``; S, the stream's length).
-    Reading S is the compaction's one sync."""
-    incl = counts.cumsum(0, dtype=torch.int64)
-    return incl - counts, int(incl[-1])
+    """(``StreamIndex.firsts``: the prefix sum of the count pass's
+    ``counts``, so each tile's first rank and then S; S).  Reading S is the
+    compaction's one sync."""
+    firsts = counts.cumsum(0)
+    return firsts, int(firsts[-1])
 
 
 def _layout_args(val: torch.Tensor, L: int, n: int, starts: torch.Tensor, k: int) -> tuple:
     """The compaction kernel's view of the hash layout: flags and their
-    pitch, lead-in rows, L, C, k-mer starts, record starts, segments."""
+    pitch (16-byte rows: the kernel loads 16 flags at once), lead-in rows,
+    L, C, k-mer starts, record starts."""
     if not sc._on_cuda(val):
         raise ValueError("the compaction kernel's passes take CUDA tensors (stream_batch "
-                         "takes the plain version for CPU ones)")
+                         "and decode_ranks take the plain version for CPU ones)")
     sc._check_rows(val, torch.int8, tuple(val.shape), "compaction val")
+    _check_aligned(val, 16, "compaction val")
     return (val.data_ptr(), val.stride(0), k - 1, L, val.shape[1], n - k + 1,
-            starts.data_ptr(), starts.shape[0], STREAM_SEG, stream_segments(L))
+            starts.data_ptr(), starts.shape[0])
+
+
+def _check_aligned(t: torch.Tensor, nbytes: int, name: str) -> None:
+    """Rows that start on ``nbytes`` boundaries, as ``sc.pitched`` makes them."""
+    step = t.element_size()
+    if t.data_ptr() % nbytes or (t.stride(0) * step) % nbytes:
+        raise ValueError(f"{name}: want rows on {nbytes}-byte boundaries, got address "
+                         f"{t.data_ptr()} and a pitch of {t.stride(0) * step} bytes")
 
 
 def _count(val: torch.Tensor, L: int, n: int, starts: torch.Tensor, k: int) -> torch.Tensor:
-    """The count pass on the card: ``segment_counts_ref``'s counts."""
+    """The count pass on the card: ``tile_counts_ref``'s counts."""
     args = _layout_args(val, L, n, starts, k)
-    counts = torch.empty(val.shape[1] * args[-1], dtype=torch.int32, device=val.device)
+    counts = torch.empty(val.shape[1] * stream_tiles(L) + 1, dtype=torch.int64,
+                         device=val.device)
     with torch.cuda.device(val.device):
         err = sc._lib().nj_stream_count(*args, counts.data_ptr(), sc._stream(val))
     sc._launched(err, "stream")
@@ -222,6 +283,8 @@ def _gather(h: torch.Tensor, val: torch.Tensor, L: int, n: int, starts: torch.Te
     rank order, int64 and int8 (S,)."""
     args = _layout_args(val, L, n, starts, k)
     sc._check_rows(h, torch.int64, tuple(val.shape), "compaction h")
+    _check_aligned(h, 16, "compaction h")
+    sc._check(firsts, torch.int64, (val.shape[1] * stream_tiles(L) + 1,), "compaction firsts")
     hflat = torch.empty(S, dtype=torch.int64, device=h.device)
     vflat = torch.empty(S, dtype=torch.int8, device=h.device)
     with torch.cuda.device(h.device):
@@ -247,13 +310,18 @@ def _chunks(hflat: torch.Tensor, vflat: torch.Tensor,
     return hs, vs, Ls
 
 
-def _positions(val: torch.Tensor, L: int, n: int, starts: torch.Tensor, k: int,
-               firsts: torch.Tensor, S: int) -> torch.Tensor:
-    """The positions pass on the card: ``pos`` of ``stream_batch``."""
-    args = _layout_args(val, L, n, starts, k)
-    pos = torch.empty(S, dtype=torch.int64, device=val.device)
+def _decode(index: StreamIndex, ranks: torch.Tensor) -> torch.Tensor:
+    """The decode pass on the card: ``decode_ranks``'s positions."""
+    val, L = index.val, index.L
+    args = _layout_args(val, L, index.n, index.starts, index.k)
+    sc._check(index.firsts, torch.int64, (val.shape[1] * stream_tiles(L) + 1,),
+              "compaction firsts")
+    sc._check(ranks, torch.int64, (ranks.shape[0],), "decode ranks")
+    pos = torch.empty_like(ranks)
+    if ranks.shape[0] == 0:
+        return pos
     with torch.cuda.device(val.device):
-        err = sc._lib().nj_stream_pos(*args, firsts.data_ptr(), pos.data_ptr(),
-                                      sc._stream(val))
+        err = sc._lib().nj_stream_decode(*args, index.firsts.data_ptr(), ranks.data_ptr(),
+                                         ranks.shape[0], pos.data_ptr(), sc._stream(val))
     sc._launched(err, "stream")
     return pos

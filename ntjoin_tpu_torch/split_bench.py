@@ -6,6 +6,7 @@ for tuning them and for comparing two trees in one call.
     python -m ntjoin_tpu_torch.split_bench sweep
     python -m ntjoin_tpu_torch.split_bench variant DIR [noscan] [noload] [nostore]
                                                    [rows=N] [threads=N]
+    python -m ntjoin_tpu_torch.split_bench stream [--quick]
 
 ``times`` holds each op bit-equal to its plain version and prints one JSON
 line per (window, stream) with CUDA-event milliseconds: 2^24 bases at w=10,
@@ -20,7 +21,15 @@ block at 2^27 bases.  ``variant`` copies the
 package into DIR with parts of the split kernels compiled out (the scans,
 the loads, kernel 3's stores: times then say what each part costs, outputs
 are wrong) or with other rows a thread and threads a block; run ``times
---unchecked`` or ``sweep`` from DIR.  Exits 2 without a CUDA device.
+--unchecked`` or ``sweep`` from DIR.  ``stream`` times the general
+path's compaction kernel (``ops/sketch_general.py``) pass by pass on 100 Mbp
+of draft scaffolds (20 of 5 Mbp, an N run of 50-500 bp every 2-8 kbp) at
+w=1000 and 5000 (``--quick``: 1000 only), its outputs held bit-equal to
+the plain version's first (``--unchecked``: not); on a tree whose
+compaction still makes a position for every rank (its ``_positions``) it
+times that tree's passes, so that a copy of this file in such a tree's
+package compares the two in one call.
+Exits 2 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -147,6 +156,76 @@ def sweep() -> None:
         del want_e, want_a
 
 
+def _queued_ms(fn, reps: int = 20) -> float:
+    """Device time of launches queued behind a spinning kernel, so that a
+    host slower than the card does not space them out."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _drafts() -> list[np.ndarray]:
+    """20 seeded scaffolds of 5 Mbp with an N run of 50-500 bp every 2-8 kbp."""
+    rng = np.random.default_rng(61)
+    recs = []
+    for _ in range(20):
+        c = rng.integers(0, 4, size=5_000_000, dtype=np.uint8)
+        at = np.cumsum(rng.integers(2000, 8001, size=c.shape[0] // 2000 + 1))
+        at = at[at < c.shape[0] - 500]
+        for a, ln in zip(at.tolist(), rng.integers(50, 501, size=at.shape[0]).tolist()):
+            c[a : a + ln] = 4
+        recs.append(c)
+    return recs
+
+
+def stream(quick: bool) -> None:
+    from ntjoin_tpu_torch.ops import sketch_general as sg
+    from ntjoin_tpu_torch.ops import sketch_records as sr
+
+    recs = _drafts()
+    old = hasattr(sg, "_positions")  # a tree that makes a position for every rank
+    for w in (1000,) if quick else (1000, 5000):
+        host, total, offsets = sr.pack_batch(recs, K, w)
+        flat, starts = host.cuda(), torch.from_numpy(offsets).cuda()
+        h, val, L = sg.hash_batch(flat, total, K, w)
+        hs, vs, Ls, extra = sg.stream_batch(flat, total, starts, K, w)
+        p_hs, p_vs, p_Ls, p_extra = sg.stream_batch(flat, total, starts, K, w, plain=True)
+        ranks, _ = sc.window_stream(hs, vs, Ls, w, 0)
+        if old:
+            _same(f"compaction w={w}", (hs, vs, extra), (p_hs, p_vs, p_extra))
+        else:
+            _same(f"compaction w={w}", (hs, vs, extra.firsts, sg.decode_ranks(extra, ranks)),
+                  (p_hs, p_vs, p_extra.firsts, sg.decode_ranks(p_extra, ranks, plain=True)))
+        del p_hs, p_vs, p_extra
+        firsts, S = sg.first_ranks(sg._count(val, L, total, starts, K))
+        hflat, vflat = sg._gather(h, val, L, total, starts, K, firsts, S)
+        out = {"w": w, "bases": total, "C": val.shape[1], "L": L, "S": S, "Cs": hs.shape[1],
+               "Ls": Ls, "emitted": int(ranks.numel()), "tree": "positions" if old else "tiles",
+               "count_ms": _queued_ms(lambda: sg._count(val, L, total, starts, K)),
+               "count_scan_sync_ms": _ms(
+                   lambda: sg.first_ranks(sg._count(val, L, total, starts, K))),
+               "gather_ms": _ms(lambda: sg._gather(h, val, L, total, starts, K, firsts, S)),
+               "chunks_ms": _ms(lambda: sg._chunks(hflat, vflat, w))}
+        if old:
+            out["positions_ms"] = _ms(
+                lambda: sg._positions(val, L, total, starts, K, firsts, S))
+        else:
+            index = sg.StreamIndex(val, firsts, L, total, K, starts)
+            counts = sg._count(val, L, total, starts, K)
+            out["scan_ms"] = _queued_ms(lambda: counts.cumsum(0))
+            out["decode_ms"] = _queued_ms(lambda: sg._decode(index, ranks))
+        print(json.dumps(out), flush=True)
+        del h, val, hs, vs, extra, hflat, vflat, flat, starts, host
+
+
 # What ``variant`` rewrites, by file under the package: (find, replace).
 _PARTS = {
     "noscan": ("csrc/vanherk.cuh", [
@@ -204,7 +283,7 @@ def variant(dst: str, what: list[str]) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if not argv or argv[0] not in ("times", "sweep", "variant"):
+    if not argv or argv[0] not in ("times", "sweep", "variant", "stream"):
         print(__doc__, file=sys.stderr)
         return 2
     if argv[0] == "variant":
@@ -218,10 +297,13 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     print(json.dumps({"device": torch.cuda.get_device_name(0), "build_s": sc.build()[0]}),
           flush=True)
+    global _CHECKED
     if argv[0] == "times":
-        global _CHECKED
         _CHECKED = "--unchecked" not in argv[1:]
         times("--quick" in argv[1:])
+    elif argv[0] == "stream":
+        _CHECKED = "--unchecked" not in argv[1:]
+        stream("--quick" in argv[1:])
     else:
         sweep()
     return 0

@@ -203,8 +203,8 @@ def _pack(recs: list[np.ndarray], k: int, w: int):
 def _stream_len(recs: list[np.ndarray], k: int, w: int) -> tuple[int, int, int]:
     """(S, Cs, Ls) of the records' stream."""
     host, total, starts = _pack(recs, k, w)
-    hs, _, Ls, pos = sg.stream_batch(host, total, starts, k, w)
-    return pos.shape[0], hs.shape[1], Ls
+    hs, _, Ls, index = sg.stream_batch(host, total, starts, k, w)
+    return index.S, hs.shape[1], Ls
 
 
 def _edge_case(case: str, k: int, w: int) -> list[np.ndarray]:
@@ -273,18 +273,22 @@ def _chunked_stream(case: str, k: int, w: int):
 def test_stream_batch_layout(case):
     """``stream_batch`` on the CPU (the plain version): every rank's hash
     and flag in its chunk, at row r and in the halo of the chunk before,
-    all-ones and 0 past S; ``pos`` the kept positions; one plain call
-    counted and no launch."""
+    all-ones and 0 past S; the index's tile first ranks and its decode of
+    every rank the kept positions; one plain call counted and no launch."""
     k, w = 15, 10
     host, total, starts, (h, val, L) = _chunked_stream(case, k, w)
     sc.reset_counts()
-    hs, vs, Ls, pos = sg.stream_batch(host, total, starts, k, w)
+    hs, vs, Ls, index = sg.stream_batch(host, total, starts, k, w)
     assert sc.COUNTS["stream_plain"] == 1 and sc.COUNTS["stream"] == 0
     keep = val[k - 1 : k - 1 + L].t().reshape(-1)[: total - k + 1].clone()
     dead = starts[1:] - 1
     keep[dead] = 1
-    assert pos.tolist() == torch.nonzero(keep).flatten().tolist()
+    pos = torch.nonzero(keep).flatten()
     S = pos.shape[0]
+    assert index.S == S and torch.equal(index.val, val) and index.L == L
+    assert index.firsts.tolist() == sg.first_ranks(
+        sg.tile_counts_ref(val, L, total, starts, k))[0].tolist()
+    assert sg.decode_ranks(index, torch.arange(S)).tolist() == pos.tolist()
     Cs = hs.shape[1]
     assert (Cs, Ls) == sc.layout(S, 1, w) and hs.shape[0] == Ls + w - 1
     by_pos = h[k - 1 : k - 1 + L].t().reshape(-1)
@@ -299,21 +303,99 @@ def test_stream_batch_layout(case):
 
 
 @pytest.mark.parametrize("seg", [7, 32, 1024])
-def test_segment_counts_and_first_ranks(monkeypatch, seg):
-    """The count pass's plain version and the scan of its counts: each
-    segment's first rank is the count of kept positions before its first
-    row, and S is their total."""
-    monkeypatch.setattr(sg, "STREAM_SEG", seg)
+def test_segment_counts_and_first_ranks(seg):
+    """The count pass's plain version over tiles of ``seg`` rows (the
+    kernel's are ``STREAM_TILE`` = 32; the columns of L = 93 rows end in a
+    short tile for each) and the scan of its counts: each tile's first rank
+    is the count of kept positions before its first row, followed by S."""
     k, w = 15, 10
     host, total, starts, (h, val, L) = _chunked_stream("k_minus_1_separators", k, w)
-    _, _, _, pos = sg.stream_batch(host, total, starts, k, w)
-    counts = sg.segment_counts_ref(val, L, total, starts, k)
-    C, nseg = val.shape[1], sg.stream_segments(L)
-    assert counts.dtype == torch.int32 and counts.shape == (C * nseg,) and nseg * seg >= L
+    pos = sg.valid_positions(val, L, total, starts, k)
+    counts = sg.tile_counts_ref(val, L, total, starts, k, seg)
+    C, T = val.shape[1], sg.stream_tiles(L, seg)
+    assert counts.dtype == torch.int64 and counts.shape == (C * T + 1,) and T * seg >= L
+    assert T == -(-L // seg) and sg.stream_tiles(L) == -(-L // sg.STREAM_TILE)
+    assert int(counts[0]) == 0 and int(counts.min()) >= 0 and int(counts.max()) <= seg
     firsts, S = sg.first_ranks(counts)
-    assert S == pos.shape[0] and firsts.dtype == torch.int64
-    first_pos = torch.tensor([c * L + s * seg for c in range(C) for s in range(nseg)])
-    assert firsts.tolist() == torch.searchsorted(pos, first_pos).tolist()
+    assert S == pos.shape[0] and firsts.dtype == torch.int64 and firsts.shape == (C * T + 1,)
+    first_pos = torch.tensor([c * L + t * seg for c in range(C) for t in range(T)])
+    assert firsts[:-1].tolist() == torch.searchsorted(pos, first_pos).tolist()
+    assert int(firsts[-1]) == S
+
+
+def _decode_by_tiles(index: sg.StreamIndex, ranks: torch.Tensor) -> list[int]:
+    """The decode pass's steps (csrc/stream.cu) in Python: the last tile
+    whose first rank is at most the rank, that tile's kept rows (valid
+    flags, dead slots, rows below N), the j-th of them."""
+    firsts = index.firsts.numpy()
+    L, k, tile = index.L, index.k, sg.STREAM_TILE
+    T, N = sg.stream_tiles(L), index.n - k + 1
+    val = index.val[k - 1 : k - 1 + L].numpy()
+    dead = set((index.starts[1:] - 1).tolist())
+    out = []
+    for q in ranks.tolist():
+        x = int(np.searchsorted(firsts[:-1], q, side="right")) - 1
+        c, r0 = divmod(x, T)
+        r0 *= tile
+        kept = [r for r in range(r0, min(r0 + tile, L))
+                if c * L + r < N and (val[r, c] != 0 or c * L + r in dead)]
+        out.append(c * L + kept[q - int(firsts[x])])
+    return out
+
+
+def _tile_layout(case: str):
+    """A hash layout's flags (k = 4, L = 100: four tiles a column, the last
+    of 4 rows; the last column ends before L at N) and record starts that
+    put dead slots at a tile's edges: (val, n, starts, k)."""
+    k, L, C = 4, 100, 6
+    n = C * L - 37 + k - 1
+    rng = np.random.default_rng(len(case))
+    flags = (rng.random((L, C)) < 0.7).astype(np.int8)
+    if case == "dead_on_tile_edges":  # rows 32 and 63 of column 1: a tile's first and last
+        starts = [0, L + 33, L + 64, 4 * L + 10]
+    elif case == "record_start_at_tile_edge":  # rows 64 and 0 start records
+        starts = [0, 2 * L + 64, 3 * L, 5 * L + 32]
+    else:  # column 3 keeps no row
+        flags[:, 3] = 0
+        starts = [0, L + 50, 5 * L + 3]
+    for s in starts[1:]:
+        flags[(s - 1) % L, (s - 1) // L] = 0  # a dead slot's k-mer is never valid
+    val = np.zeros((k - 1 + L, C), np.int8)
+    val[k - 1 :] = flags
+    return torch.from_numpy(val), n, torch.tensor(starts, dtype=torch.int64), k
+
+
+@pytest.mark.parametrize("case", ["every_rank", "emitted_ranks", "dead_on_tile_edges",
+                                  "record_start_at_tile_edge", "column_without_kept_row",
+                                  "S_multiple_of_Ls"])
+def test_decode_ranks(case):
+    """``decode_ranks`` (on the CPU ``valid_positions(...)[ranks]``) and the
+    decode pass's steps from the tile first ranks agree on every rank asked
+    for: all ranks of a layout, or the ranks a batch's windows emit."""
+    if case in ("every_rank", "emitted_ranks", "S_multiple_of_Ls"):
+        k, w = 15, 10
+        recs = _edge_case("S_multiple_of_Ls" if case == "S_multiple_of_Ls"
+                          else "k_minus_1_separators", k, w)
+        host, total, starts = _pack(recs, k, w)
+        hs, vs, Ls, index = sg.stream_batch(host, total, starts, k, w)
+        if case == "S_multiple_of_Ls":
+            assert index.S == hs.shape[1] * Ls
+        ranks = (sc.window_stream(hs, vs, Ls, w, 0)[0] if case == "emitted_ranks"
+                 else torch.arange(index.S))
+    else:
+        val, n, starts, k = _tile_layout(case)
+        L = val.shape[0] - k + 1
+        firsts, _ = sg.first_ranks(sg.tile_counts_ref(val, L, n, starts, k))
+        index = sg.StreamIndex(val, firsts, L, n, k, starts)
+        ranks = torch.arange(index.S)
+        if case == "column_without_kept_row":
+            T = sg.stream_tiles(L)
+            assert int(firsts[4 * T]) == int(firsts[3 * T])  # column 3 keeps nothing
+    assert 0 < ranks.shape[0] <= index.S
+    want = sg.valid_positions(index.val, index.L, index.n, index.starts, index.k)[ranks]
+    got = sg.decode_ranks(index, ranks)
+    assert got.dtype == torch.int64 and got.tolist() == want.tolist()
+    assert _decode_by_tiles(index, ranks) == want.tolist()
 
 
 @pytest.mark.parametrize("flat,starts,what", [
@@ -332,9 +414,14 @@ def test_stream_batch_refuses(flat, starts, what):
 
 
 def test_compaction_passes_want_the_card():
-    """The kernel's passes take no CPU tensor: ``stream_batch`` alone picks
-    the plain version, for a CPU tensor."""
+    """The kernel's passes take no CPU tensor: ``stream_batch`` and
+    ``decode_ranks`` alone pick the plain version, for a CPU tensor."""
     k, w = 15, 10
     host, total, starts, (h, val, L) = _chunked_stream("k_minus_1_separators", k, w)
     with pytest.raises(ValueError, match="CUDA tensors"):
         sg._count(val, L, total, starts, k)
+    _, _, _, index = sg.stream_batch(host, total, starts, k, w)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sg._decode(index, torch.arange(3))
+    with pytest.raises(ValueError, match="int64 ranks"):
+        sg.decode_ranks(index, torch.arange(3, dtype=torch.int32))
