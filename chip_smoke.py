@@ -19,14 +19,18 @@ with a non-zero exit and no result line:
             (few long chunks): the hash kernel, the one-chunk tiles beside
             the device-memory route, the exact kernel; at w=10000, beyond
             what a one-chunk tile holds, the device-memory route and the
-            exact kernel; the flag kernel at all three; and on 2^24 bases
+            exact kernel; the flag kernel at all three, timed as launched
+            and queued, each of its three passes queued beside the op, the
+            bytes they move and the bound,
+            and at w=1000 its summary (masks and P) bit-equal to
+            flag_summary_ref; and on 2^24 bases
             the flag kernel and the shared-memory route at w=10 and w=100
             (short windows, empty row groups), w=2000 and w=4000 (tiles of
             4 and 2 chunks), w=4243 and the longest window that fits (tiles
             of 1), the exact kernel at w=10 and 4243, and the device-memory
             route at the first window it serves and at w=20000 (with the
-            exact kernel), its time beside the one-chunk tiles' one window
-            below
+            exact kernel and the flag kernel's times), its time beside the
+            one-chunk tiles' one window below
 4. copy     the copy kernel against the plain version and against
             ``copy_`` into a kept buffer on the profiler's 546 MB array of
             32-bit words; bit-equal; plain, kernel and ``copy_`` timed in
@@ -35,7 +39,7 @@ with a non-zero exit and no result line:
             fused and the general path) against the host oracle, one forced
             overflow through kernel 3, batches at w=5000 through the
             one-chunk tiles and at w=10000 through the device-memory route;
-            every device batch through the flag kernel
+            every device batch through the flag kernel's three passes
 6. prof     `python -m ntjoin_tpu_torch.kernel_prof` at 2^27 bases, every
             stage: each must print its JSON line, forwarded here; its
             launch counts are the copy kernel's main path
@@ -292,14 +296,49 @@ def _flags(val: torch.Tensor, L: int, w: int, off: int, what: str) -> tuple:
     return flags, _compare(f"flags ({what})", (flags,), (sc.window_flags_ref(val, L, w, off),))
 
 
+def _flag_traffic(val: torch.Tensor, L: int, w: int) -> int:
+    """Bytes the flag kernel's three passes move: val read once; the masks
+    written, read by the scan; P written; for each walk thread, a 16-column
+    row of the masks of each tile its windows end in and of P of the tile
+    before; the flags written."""
+    C = val.shape[1]
+    T, m_pitch = sc.flag_scratch(C, L, w)
+    ends = sc.flag_segments(L, w, sc.FLAG_ROWS) + w - 1
+    first, last = ends[:, 0] // 32, (ends[:, 1] - 1) // 32
+    walk_rows = int((last - first + 1).sum() + (first > 0).sum())  # masks, and P before
+    return ((L + w - 1) * val.stride(0) + 3 * 4 * T * m_pitch
+            + 4 * sc.FLAG_COLS * -(-C // sc.FLAG_COLS) * walk_rows
+            + L * -(-C // sc.PITCH) * sc.PITCH)
+
+
 def _flag_times(val: torch.Tensor, L: int, w: int, off: int) -> dict:
-    """Kernel and plain times of the flag op; its bound: the k-mer flags its
-    windows cover in, the window flags out."""
+    """Kernel and plain times of the flag op as its callers launch it
+    (``ms``), the op queued behind a spinning kernel (``queued_ms``, device
+    time alone) and its three passes (the summary, the scan, the walk)
+    queued alike; its bound: the k-mer flags its windows cover in, the window
+    flags out; ``traffic_bytes`` what the passes move."""
+    C = val.shape[1]
     flags = sc.window_flags(val, L, w, off)
+    masks = sc._flag_masks(val, L, w, off)
+    P = sc._flag_scan(masks)
     return {"ms": _time_ms(lambda: sc.window_flags(val, L, w, off), 10),
+            "queued_ms": _time_queued_ms(lambda: sc.window_flags(val, L, w, off), 10),
             "plain_ms": _time_ms(lambda: sc.window_flags_ref(val, L, w, off), 2),
             "library_ms": None,
-            **bound((L + w - 1 + L) * flags.stride(0), 3 * (L + w - 1) * val.shape[1])}
+            "summary_ms": _time_queued_ms(lambda: sc._flag_masks(val, L, w, off), 10),
+            "scan_ms": _time_queued_ms(lambda: sc._flag_scan(masks), 10),
+            "walk_ms": _time_queued_ms(lambda: sc._flag_walk(masks, P, C, L, w), 10),
+            "traffic_bytes": _flag_traffic(val, L, w),
+            **bound((L + w - 1 + L) * flags.stride(0), 3 * (L + w - 1) * C)}
+
+
+def _flag_line(t: dict, what: str) -> str:
+    return (f"   flags at {what}: bit-equal; kernel {t['ms']:.4f} ms, queued "
+            f"{t['queued_ms']:.4f} (summary {t['summary_ms']:.4f}, scan {t['scan_ms']:.4f}, "
+            f"walk {t['walk_ms']:.4f}; "
+            f"{t['traffic_bytes']} bytes moved), plain {t['plain_ms']:.3f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_bytes']} bytes), "
+            f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound")
 
 
 def _argmin_bound(L: int, n_sel: int, w: int) -> dict:
@@ -357,7 +396,11 @@ def kernels() -> dict[str, dict]:
     say(f"   hash rows pitched to {h.stride(0)} columns")
 
     flags, err = _flags(val, L, W, off, f"w={W}")
+    _compare(f"flag summary, masks and P (w={W})", sc.flag_summary(val, L, W, off),
+             sc.flag_summary_ref(val, L, W, off))
     out["flags"] = {"max_abs_err": err, **_flag_times(val, L, W, off)}
+    say(_flag_line(out["flags"], f"w={W}, C={C} chunks of L={L}") + "; the summary's masks "
+        "and P bit-equal to flag_summary_ref")
     cap = sc._slot_cap(L, W)
     tile = sc.emit_tile(W)
     if not tile:
@@ -417,9 +460,7 @@ def kernels() -> dict[str, dict]:
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
         f"({b['bound_bytes']} bytes)")
     flags, _ = _flags(val, L, W_LONG, off, f"w={W_LONG}")
-    t = _flag_times(val, L, W_LONG, off)
-    say(f"   flags at w={W_LONG}: bit-equal; kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} "
-        f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_bytes']} bytes)")
+    say(_flag_line(_flag_times(val, L, W_LONG, off), f"w={W_LONG}, C={C} chunks of L={L}"))
     cap = sc._slot_cap(L, W_LONG)
     want = sc.window_emit_ref(h, flags, L, W_LONG, off, cap)
     sc.reset_counts()
@@ -446,9 +487,7 @@ def kernels() -> dict[str, dict]:
     flat, C, L, rows, off = _cell(codes, W_GMEM)
     h, val = sc.hash_chunked(flat, L, C, rows, K)
     flags, _ = _flags(val, L, W_GMEM, off, f"w={W_GMEM}")
-    t = _flag_times(val, L, W_GMEM, off)
-    say(f"   flags at w={W_GMEM}: bit-equal; kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} "
-        f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_bytes']} bytes)")
+    say(_flag_line(_flag_times(val, L, W_GMEM, off), f"w={W_GMEM}, C={C} chunks of L={L}"))
     cap = sc._slot_cap(L, W_GMEM)
     sc.reset_counts()
     err = _compare(f"window_emit_gmem (w={W_GMEM})",
@@ -508,6 +547,8 @@ def kernels() -> dict[str, dict]:
             + (f" beside {tile_ms:.3f} ms for the one-chunk tiles at w={w_max}"
                if w == w_max + 1 else ""))
         if w == 20_000:
+            say(_flag_line(_flag_times(val, L, w, off),
+                           f"w={w}, {small.shape[0]} bases, C={C} chunks of L={L}"))
             say(_exact_all(h, L, w, off))
     del h, val, flags, flat
     for name, r in out.items():
@@ -587,8 +628,10 @@ def _peak_bytes(fn):
 
 
 def _flags_counted(counts: dict) -> None:
-    """Every device batch launches the hash kernel and the flag kernel once."""
-    if counts["flags"] < 1 or counts["flags"] != counts["hash"] or counts["flags_plain"]:
+    """Every device batch launches the hash kernel once and the flag
+    kernel's passes."""
+    if (counts["flags"] < 1 or counts["flags"] != sc.FLAG_LAUNCHES * counts["hash"]
+            or counts["flags_plain"]):
         fail(f"a device batch went round the flag kernel: {counts}")
 
 
@@ -824,7 +867,8 @@ def _counted_route(counts: dict, w: int, what: str) -> None:
     their route, a general batch also the compaction kernel, no plain
     version, and the host sketched nothing."""
     route = "window_emit" if sc.emit_tile(w) else "window_emit_gmem"
-    if (counts["hash"] < 1 or counts["flags"] != counts["hash"] or counts[route] < 1
+    if (counts["hash"] < 1 or counts["flags"] != sc.FLAG_LAUNCHES * counts["hash"]
+            or counts[route] < 1
             or (counts["general_batches"] and counts["stream"] < 4) or counts["host_records"]
             or any(counts[f"{op}_plain"] for op in sc._OPS)):
         fail(f"{what}: the general path did not run on its kernels: {counts}")
@@ -981,6 +1025,8 @@ def general() -> dict[str, dict]:
                 say(f"   general {name} at w={w}: kernel {r['ms']:.4f} ms, plain "
                     f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
                     f"({r['bound_bytes']} bytes); {r['launches']} launches in the run")
+            say(_flag_line(out["flags"],
+                           f"the general stream, w={w}, C={Cs} chunks of L={Ls}"))
             say("   the plain compaction's device time by kernel (torch.profiler, one call): "
                 + _kernel_split(compaction_plain))
         del h, val, hs, vs, index, firsts, ranks, flags, flat, host, kern, hflat, vflat
@@ -1197,7 +1243,8 @@ def distributed_phase(work: str, args: list[str]) -> dict[str, int]:
         a2a = [b for op, b in c["exchanges"] if op == "all_to_all"]
         if (c["device"] != "cuda:0" or c["process_id"] != pid or c["n_shards"] != 4
                 or sk["host_records"] or any(sk[f"{op}_plain"] for op in sc._OPS)
-                or sk["hash"] < 1 or sk["flags"] != sk["hash"] or sk["window_emit"] < 1
+                or sk["hash"] < 1 or sk["flags"] != sc.FLAG_LAUNCHES * sk["hash"]
+                or sk["window_emit"] < 1
                 or len(a2a) != 2 or min(a2a) <= 0 or not c["verdict_ms"]):
             fail(f"distributed: process {pid} did not sketch on the card's kernels, exchange "
                  f"and judge on the card: {c}")
@@ -1539,7 +1586,7 @@ def main() -> int:
     run, _, dist_launches = e2e(sizes, contigs_target, then=distributed_phase)
     if run["host_records"] != 0:
         fail(f"{run['host_records']} records took the host sketcher")
-    if run["flags"] != run["hash"]:
+    if run["flags"] != sc.FLAG_LAUNCHES * run["hash"]:
         fail(f"the e2e run's batches went round the flag kernel: {run}")
     counts.update({name: run[name]
                    for name in ("hash", "flags", "window_emit", "window", "stream")})

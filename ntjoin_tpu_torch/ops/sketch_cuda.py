@@ -12,8 +12,11 @@ Pipeline of one batch (``sketch_fused_torch``):
    k-mer valid flag, (rows, C).
 3. Flags (``csrc/flags.cu``): a window is valid when all w k-mers are; the
    first valid window after an invalid one is forced to emit (a record's
-   first window).  A running "last invalid row" down each column, the rows
-   split over the threads of a block.
+   first window).  Three launches: a 32-bit mask of the invalid rows of each
+   32-row tile of a column (the valid flags read once), a max-scan of the
+   tiles' last invalid rows down each column, and a walk in which a thread
+   owns 16 columns and a segment of windows (``flag_launch``) and carries
+   the last invalid row from the tile before it.
 4. Window/emission (kernel 2, ``csrc/window_emit.cu``): per-chunk lists of
    emitted (position, canonical hash), bounded by a capacity, plus the true
    per-chunk counts.  Two routes, chosen from w alone (``emit_tile``): tiles
@@ -68,8 +71,9 @@ LIB_PATH = os.path.join(_PKG, "_build", "libntjoin_cuda.so")
 # device, ``host_records_size``), records and batches of the general path
 # (``ops/sketch_records.py``), and runs of the exact window path.  Plain
 # counters so that a run can show which code served it; ``reset_counts``
-# zeroes them.  The sketch runs ``hash``, ``flags``, one of the two
-# window/emission routes and ``window``, and the general path also
+# zeroes them.  The sketch runs ``hash``, ``flags`` (``FLAG_LAUNCHES`` an
+# op: summary, scan, walk), one of the two window/emission routes and
+# ``window``, and the general path also
 # ``stream``, its compaction (``ops/sketch_general.py``, four launches a
 # batch: count, gather, chunks, decode); the copy (``ops/membw.py``) serves
 # the profiler, ``mk_s`` the Mann-Kendall S of ``mkt=True``
@@ -205,7 +209,10 @@ def _lib():
             "nj_window_emit_gmem": [p, i64, p, i64, i64, i64, i32, i64, i64, i32, i32, p, p,
                                     p, p],
             "nj_window": [p, i64, i64, i32, i64, p, i64, i32, i32, p, p],
-            "nj_flags": [p, i64, i64, i64, i32, i64, i32, p, i64, p],
+            "nj_flags": [p, i64, i64, i64, i32, p, i64, p, i64, p],
+            "nj_flags_summary": [p, i64, i64, i64, p, i64, p],
+            "nj_flags_scan": [p, i64, i64, p, p],
+            "nj_flags_walk": [p, p, i64, i64, i64, i32, p, i64, p],
             "nj_copy": [p, p, i64, p],
             "nj_stream_count": [p, i64, i64, i64, i64, i64, p, i64, p, p],
             "nj_stream_gather": [p, i64, p, i64, i64, i64, i64, i64, p, i64, p, p, p, p],
@@ -222,9 +229,13 @@ def _lib():
     return _LIB
 
 
-def _launched(err: int, name: str) -> None:
+def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def _launched(err: int, name: str) -> None:
+    _raise_on(err, name)
     add_count(name)
 
 
@@ -516,15 +527,48 @@ def argmin_launch(C: int, w: int, dev: torch.device) -> tuple[int, int]:
     return _split_launch(w, C, (32, 16, 8, 4), sms // 2, most)
 
 
-def flag_band(C: int, L: int, w: int, dev: torch.device) -> int:
-    """Elements (rows) of a band of the flag kernel, whose thread blocks own
-    128 columns and one band each: as many bands as give every SM two thread
-    blocks, but none shorter than w, because a band reads the w rows
-    before it again."""
-    want = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
-    n_el = L + w - 1
-    bands = max(1, min(-(-want // -(-C // 128)), n_el // w))
-    return -(-n_el // bands)
+# The flag kernel (``csrc/flags.cu``), three launches an op: its walk gives a
+# thread 16 columns (a 16-byte store of a flag row) and ``FLAG_ROWS``
+# windows, ``FLAG_THREADS`` a block, the kernel's kWalkRows and
+# kWalkThreads: 32 windows, one tile's ends, and 128 threads were the
+# fastest at every shape measured on an H100 (8-256 windows, 128-512
+# threads; ``split_bench variant DIR flagrows=N flagthreads=N``).
+FLAG_TILE = 32
+FLAG_COLS = 16
+FLAG_THREADS = 128
+FLAG_ROWS = 32
+FLAG_LAUNCHES = 3
+
+
+def flag_scratch(C: int, L: int, w: int) -> tuple[int, int]:
+    """(tiles, pitch) of the flag kernel's masks and P: a row a 32-row tile
+    of the L + w - 1 elements, C rounded up to 128 columns."""
+    return -(-(L + w - 1) // FLAG_TILE), -(-C // 128) * 128
+
+
+def _flag_segs(L: int, w: int, rows: int) -> tuple[int, int]:
+    """(first element, count) of the walk's segments (``flag_segments``)."""
+    base = (w - 1) // FLAG_TILE * FLAG_TILE
+    return base, -(-(L + w - 1 - base) // rows)
+
+
+def flag_segments(L: int, w: int, rows: int) -> np.ndarray:
+    """(segments, 2) [j0, j1) windows of the flag kernel's walk threads: the
+    elements where windows end (w - 1 .. L + w - 2) cut into runs of
+    ``rows`` from the start of the tile of w - 1, so that a run of 32 reads
+    the masks of one tile."""
+    base, n = _flag_segs(L, w, rows)
+    s0 = base + rows * np.arange(n, dtype=np.int64)
+    return np.stack([np.maximum(s0, w - 1), np.minimum(s0 + rows, L + w - 1)], 1) - (w - 1)
+
+
+def flag_launch(C: int, L: int, w: int) -> tuple[int, int]:
+    """(rows, blocks) of the flag kernel's walk: a thread owns 16
+    neighbouring columns and a segment of up to ``FLAG_ROWS`` windows
+    (``flag_segments``).  The thread count follows the windows times the
+    columns, never w alone: a thread reads no halo."""
+    groups = -(-C // FLAG_COLS)
+    return FLAG_ROWS, -(-groups * _flag_segs(L, w, FLAG_ROWS)[1] // FLAG_THREADS)
 
 
 def _emit_outputs(cap: int, C: int, dev: torch.device):
@@ -648,27 +692,116 @@ def window_flags_ref(val: torch.Tensor, L: int, w: int, off: int) -> torch.Tenso
     return (valid.to(torch.int8) | (first.to(torch.int8) << 1))[:, :n_cols]
 
 
-def window_flags(val: torch.Tensor, L: int, w: int, off: int) -> torch.Tensor:
-    """The window flags of ``window_flags_ref``: the flag kernel for a CUDA
-    tensor (the flags come out ``pitched``), the plain version for a CPU
-    one."""
+def flag_summary_ref(val: torch.Tensor, L: int, w: int, off: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the flag kernel's first two passes over the
+    L + w - 1 elements of each column (element e at row off + e), both
+    (tiles, C) int32 with a row a 32-row tile: the masks, bit r set where
+    element 32t + r is invalid (0 in val; none past the elements), and P,
+    the last invalid element of tiles 0 .. t (-1: none)."""
+    n_el = L + w - 1
+    C = val.shape[1]
+    T = flag_scratch(C, L, w)[0]
+    dev = val.device
+    bad = torch.zeros((T * FLAG_TILE, C), dtype=torch.bool, device=dev)
+    bad[:n_el] = val[off : off + n_el] == 0
+    bad = bad.view(T, FLAG_TILE, C)
+    r = torch.arange(FLAG_TILE, device=dev).view(1, FLAG_TILE, 1)
+    bits = (bad.to(torch.int64) << r).sum(1)
+    masks = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(torch.int32)
+    tile = torch.arange(T, dtype=torch.int32, device=dev).view(T, 1, 1)
+    at = r.to(torch.int32) + FLAG_TILE * tile
+    last = torch.where(bad, at, -1).amax(1)
+    return masks, torch.cummax(last, 0).values
+
+
+def _check_flag_val(val: torch.Tensor) -> None:
+    """The flag kernel's 16-byte loads: val rows ``pitched``, 16-byte aligned."""
+    _check_rows(val, torch.int8, tuple(val.shape), "window_flags val")
+    if val.stride(0) % PITCH or val.data_ptr() % 16:
+        raise ValueError(f"window_flags: val rows need a pitch that is a multiple of {PITCH} "
+                         f"columns and a 16-byte aligned start (see pitched), got stride "
+                         f"{val.stride(0)}, address {val.data_ptr()} % 16 = "
+                         f"{val.data_ptr() % 16}")
+
+
+def _flag_masks(val: torch.Tensor, L: int, w: int, off: int) -> torch.Tensor:
+    """The flag kernel's summary pass on a checked CUDA val: the masks,
+    (tiles, pitch) int32."""
+    C, dev = val.shape[1], val.device
+    T, m_pitch = flag_scratch(C, L, w)
+    masks = torch.empty((T, m_pitch), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().nj_flags_summary(val.data_ptr() + off * val.stride(0), val.stride(0),
+                                      L + w - 1, C, masks.data_ptr(), m_pitch, _stream(val))
+    _launched(err, "flags")
+    return masks
+
+
+def _flag_scan(masks: torch.Tensor) -> torch.Tensor:
+    """The flag kernel's scan pass: P from the masks."""
+    P = torch.empty_like(masks)
+    with torch.cuda.device(masks.device):
+        err = _lib().nj_flags_scan(masks.data_ptr(), masks.shape[1], masks.shape[0],
+                                   P.data_ptr(), _stream(masks))
+    _launched(err, "flags")
+    return P
+
+
+def _flag_walk(masks: torch.Tensor, P: torch.Tensor, C: int, L: int, w: int) -> torch.Tensor:
+    """The flag kernel's walk alone (for its time; ``window_flags`` launches
+    the three passes through one call): the flags, ``pitched``."""
+    dev = masks.device
+    flags = pitched(L, C, torch.int8, dev)
+    with torch.cuda.device(dev):
+        err = _lib().nj_flags_walk(masks.data_ptr(), P.data_ptr(), masks.shape[1], L, C, w,
+                                   flags.data_ptr(), flags.stride(0), _stream(masks))
+    _launched(err, "flags")
+    return flags
+
+
+def _check_flag_args(val: torch.Tensor, L: int, w: int, off: int) -> None:
     if val.dim() != 2 or val.shape[0] < off + L + w - 1:
         raise ValueError(f"valid rows {tuple(val.shape)} < off + L + w - 1 = {off + L + w - 1}")
     if w < 1 or L + w >= 1 << 31:
         raise ValueError(f"window w={w}, chunk length L={L}: want w >= 1 and L + w < 2^31")
+
+
+def flag_summary(val: torch.Tensor, L: int, w: int, off: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The masks and P of ``flag_summary_ref``, (tiles, C): the flag kernel's
+    summary and scan passes for a CUDA tensor (each launch counted in
+    ``flags``), the plain version for a CPU one."""
+    _check_flag_args(val, L, w, off)
+    if not _on_cuda(val):
+        return flag_summary_ref(val, L, w, off)
+    _check_flag_val(val)
+    masks = _flag_masks(val, L, w, off)
+    C = val.shape[1]
+    return masks[:, :C], _flag_scan(masks)[:, :C]
+
+
+def window_flags(val: torch.Tensor, L: int, w: int, off: int) -> torch.Tensor:
+    """The window flags of ``window_flags_ref``: the flag kernel for a CUDA
+    tensor (the flags come out ``pitched``; its ``FLAG_LAUNCHES`` launches,
+    made by one call into the library, each count in ``flags``), the plain
+    version for a CPU one."""
+    _check_flag_args(val, L, w, off)
     if not _on_cuda(val):
         return window_flags_ref(val, L, w, off)
-    C = val.shape[1]
-    _check_rows(val, torch.int8, tuple(val.shape), "window_flags val")
-    if val.stride(0) % PITCH or val.data_ptr() % 4:
-        raise ValueError(f"window_flags: val rows need a pitch that is a multiple of {PITCH} "
-                         f"columns (see pitched), got stride {val.stride(0)}")
-    flags = pitched(L, C, torch.int8, val.device)
-    with torch.cuda.device(val.device):
-        err = _lib().nj_flags(val.data_ptr(), val.stride(0), L, C, w, off,
-                              flag_band(C, L, w, val.device), flags.data_ptr(), flags.stride(0),
+    _check_flag_val(val)
+    C, dev = val.shape[1], val.device
+    flags = pitched(L, C, torch.int8, dev)
+    if L == 0:
+        return flags
+    T, m_pitch = flag_scratch(C, L, w)
+    scratch = torch.empty((2, T, m_pitch), dtype=torch.int32, device=dev)  # masks, P
+    with torch.cuda.device(dev):
+        err = _lib().nj_flags(val.data_ptr() + off * val.stride(0), val.stride(0), L, C, w,
+                              scratch.data_ptr(), m_pitch, flags.data_ptr(), flags.stride(0),
                               _stream(val))
-    _launched(err, "flags")
+    _raise_on(err, "flags")
+    add_count("flags", FLAG_LAUNCHES)  # the three passes, launched by the one call
     return flags
 
 

@@ -2,10 +2,11 @@
 device memory (kernel 3 and kernel 2's device-memory route) on one CUDA GPU,
 for tuning them and for comparing two trees in one call.
 
-    python -m ntjoin_tpu_torch.split_bench times [--quick] [--unchecked]
+    python -m ntjoin_tpu_torch.split_bench times [--quick] [--unchecked] [--flags]
     python -m ntjoin_tpu_torch.split_bench sweep
     python -m ntjoin_tpu_torch.split_bench variant DIR [noscan] [noload] [nostore]
-                                                   [rows=N] [threads=N]
+                                                   [noballot] [rows=N] [threads=N]
+                                                   [flagrows=N] [flagthreads=N]
     python -m ntjoin_tpu_torch.split_bench stream [--quick]
 
 ``times`` holds each op bit-equal to its plain version and prints one JSON
@@ -13,23 +14,30 @@ line per (window, stream) with CUDA-event milliseconds: 2^24 bases at w=10,
 100, 1000, 4243, 8362, 8363 and 20000, and (without ``--quick``) 2^27 bases
 at w=1000, 5000 and 10000; ``exact_over_ms`` is kernel 3 over the chunks whose
 emission lists overflowed (``--unchecked``: no comparison, for a tree
-with parts compiled out).  It uses only what the package has offered since
+with parts compiled out).  The flag op is timed as its callers launch it
+(``flags_ms``) and queued behind a spinning kernel (``flags_queued_ms``:
+the device time alone, where the host is slower than the launches), beside
+its bound (``flags_bound_ms``: the elements in and the flags out at 3.35
+TB/s) and, in a tree whose flag kernel runs as three passes, each pass
+queued (``flags_summary_ms``, ``flags_scan_ms``, ``flags_walk_ms``);
+``--flags`` times the flag op alone.  It uses only what the package has offered since
 its first version, so a copy of this file in another tree's package times
 that tree (run it from that tree's root: parent, change, change, parent in
 one call).  ``sweep`` times both kernels for every (chunks, threads) a thread
-block at 2^27 bases.  ``variant`` copies the
-package into DIR with parts of the split kernels compiled out (the scans,
-the loads, kernel 3's stores: times then say what each part costs, outputs
-are wrong) or with other rows a thread and threads a block; run ``times
---unchecked`` or ``sweep`` from DIR.  ``stream`` times the general
+block at 2^27 bases.  ``variant`` copies the package into DIR with parts of
+the split kernels compiled out (the scans, the loads, kernel 3's stores, the
+flag kernel's ballots: times then say what each part costs, outputs are
+wrong) or with other rows a thread and threads a block (the split kernels'
+``rows``/``threads``, the flag walk's ``flagrows``/``flagthreads``); run
+``times --unchecked`` or ``sweep`` from DIR.  ``stream`` times the general
 path's compaction kernel (``ops/sketch_general.py``) pass by pass on 100 Mbp
 of draft scaffolds (20 of 5 Mbp, an N run of 50-500 bp every 2-8 kbp) at
 w=1000 and 5000 (``--quick``: 1000 only), its outputs held bit-equal to
-the plain version's first (``--unchecked``: not); on a tree whose
+the plain version's first (``--unchecked``: not), and the whole general
+call (``sketch_general_torch``, ``call_ms``); on a tree whose
 compaction still makes a position for every rank (its ``_positions``) it
 times that tree's passes, so that a copy of this file in such a tree's
-package compares the two in one call.
-Exits 2 without a CUDA device.
+package compares the two in one call.  Exits 2 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -95,7 +103,7 @@ def _same(name: str, got, want) -> None:
             raise SystemExit(f"split_bench: {name} differs from its plain version")
 
 
-def times(quick: bool) -> None:
+def times(quick: bool, flags_only: bool = False) -> None:
     flags_ref = getattr(sc, "window_flags_ref", sc.window_flags)
     cells = [(1 << 24, 8, w) for w in (10, 100, 1000, 4243, 8362, 8363, 20000)]
     if not quick:
@@ -107,6 +115,20 @@ def times(quick: bool) -> None:
         h, val, C, L, off = _cell(streams[n], w)
         flags = sc.window_flags(val, L, w, off)
         _same(f"flags w={w}", (flags,), (flags_ref(val, L, w, off),))
+        out = {"bases": n, "w": w, "chunks": C, "chunk_len": L,
+               "flags_ms": _ms(lambda: sc.window_flags(val, L, w, off), 10),
+               "flags_queued_ms": _queued_ms(lambda: sc.window_flags(val, L, w, off), 10),
+               "flags_bound_ms": (L + w - 1 + L) * flags.stride(0) / 3.35e9}
+        if hasattr(sc, "_flag_masks"):  # the three-pass flag kernel
+            masks = sc._flag_masks(val, L, w, off)
+            P = sc._flag_scan(masks)
+            out["flags_summary_ms"] = _queued_ms(lambda: sc._flag_masks(val, L, w, off), 10)
+            out["flags_scan_ms"] = _queued_ms(lambda: sc._flag_scan(masks), 10)
+            out["flags_walk_ms"] = _queued_ms(lambda: sc._flag_walk(masks, P, C, L, w), 10)
+            del masks, P
+        if flags_only:
+            print(json.dumps(out), flush=True)
+            continue
         cap = sc._slot_cap(L, w)
         want = sc.window_emit_ref(h, flags, L, w, off, cap)
         _same(f"device-memory route w={w}", sc._window_emit_gmem(h, flags, L, w, off, cap), want)
@@ -114,10 +136,8 @@ def times(quick: bool) -> None:
         del want
         _same(f"exact w={w}", (sc.window_argmin(h, L, w, off),),
               (sc.window_argmin_ref(h, L, w, off),))
-        out = {"bases": n, "w": w, "chunks": C, "chunk_len": L,
-               "flags_ms": _ms(lambda: sc.window_flags(val, L, w, off)),
-               "gmem_ms": _ms(lambda: sc._window_emit_gmem(h, flags, L, w, off, cap), 3),
-               "exact_all_ms": _ms(lambda: sc.window_argmin(h, L, w, off), 3)}
+        out["gmem_ms"] = _ms(lambda: sc._window_emit_gmem(h, flags, L, w, off, cap), 3)
+        out["exact_all_ms"] = _ms(lambda: sc.window_argmin(h, L, w, off), 3)
         if sc.emit_tile(w):
             out["tile_ms"] = _ms(lambda: sc.window_emit(h, flags, L, w, off, cap), 3)
         if over.numel():
@@ -213,7 +233,8 @@ def stream(quick: bool) -> None:
                "count_scan_sync_ms": _ms(
                    lambda: sg.first_ranks(sg._count(val, L, total, starts, K))),
                "gather_ms": _ms(lambda: sg._gather(h, val, L, total, starts, K, firsts, S)),
-               "chunks_ms": _ms(lambda: sg._chunks(hflat, vflat, w))}
+               "chunks_ms": _ms(lambda: sg._chunks(hflat, vflat, w)),
+               "call_ms": _ms(lambda: sg.sketch_general_torch(flat, total, starts, K, w), 3)}
         if old:
             out["positions_ms"] = _ms(
                 lambda: sg._positions(val, L, total, starts, K, firsts, S))
@@ -236,6 +257,11 @@ _PARTS = {
     ]),
     "noload": ("csrc/vanherk.cuh", [
         ("? hc[e * h_pitch] : ~0ull;", "? (uint64_t)(e + hcol) * 0x9E3779B97F4A7C15ull : ~0ull;"),
+    ]),
+    "noballot": ("csrc/flags.cu", [
+        ("          const uint32_t m = __ballot_sync(~0u, z & (1u << (8 * k)));\n"
+         "          if (lane == (col & 31)) mine[col >> 5] = m;\n",
+         "          if (lane == (col & 31)) mine[col >> 5] = z;\n"),
     ]),
     "nostore": ("csrc/window.cu", [
         ("      if (chunk >= 0 && t0 + r < w && j < L) am",
@@ -260,6 +286,14 @@ def variant(dst: str, what: list[str]) -> None:
                 (f"constexpr int kRows = {sc.SPLIT_ROWS};", f"constexpr int kRows = {n};"))
             edits.setdefault("ops/sketch_cuda.py", []).append(
                 (f"\nSPLIT_ROWS = {sc.SPLIT_ROWS}\n", f"\nSPLIT_ROWS = {n}\n"))
+        elif word.startswith(("flagrows=", "flagthreads=")):
+            name, n = word.split("=")
+            cu, py = {"flagrows": (f"kWalkRows = {sc.FLAG_ROWS},", "FLAG_ROWS"),
+                      "flagthreads": (f"kWalkThreads = {sc.FLAG_THREADS};", "FLAG_THREADS")}[name]
+            edits.setdefault("csrc/flags.cu", []).append(
+                (cu, cu.split("=")[0] + f"= {int(n)}" + cu[-1]))
+            edits.setdefault("ops/sketch_cuda.py", []).append(
+                (f"\n{py} = {getattr(sc, py)}\n", f"\n{py} = {int(n)}\n"))
         elif word.startswith("threads="):
             n = int(word[8:])
             edits.setdefault("csrc/vanherk.cuh", []).append(
@@ -300,7 +334,7 @@ def main(argv: list[str] | None = None) -> int:
     global _CHECKED
     if argv[0] == "times":
         _CHECKED = "--unchecked" not in argv[1:]
-        times("--quick" in argv[1:])
+        times("--quick" in argv[1:], "--flags" in argv[1:])
     elif argv[0] == "stream":
         _CHECKED = "--unchecked" not in argv[1:]
         stream("--quick" in argv[1:])

@@ -121,7 +121,8 @@ def test_split_bench_variants_still_match_the_sources(tmp_path):
     pattern must still be found, and the copy must hold the edits."""
     from ntjoin_tpu_torch import split_bench
 
-    split_bench.variant(str(tmp_path), ["noscan", "noload", "nostore", "rows=4", "threads=1024"])
+    split_bench.variant(str(tmp_path), ["noscan", "noload", "nostore", "rows=4", "threads=1024",
+                                        "noballot", "flagrows=64", "flagthreads=256"])
     pkg = tmp_path / "ntjoin_tpu_torch"
     header = (pkg / "csrc" / "vanherk.cuh").read_text()
     assert "constexpr int kRows = 4;" in header and "constexpr int kMaxThreads = 1024;" in header
@@ -130,6 +131,10 @@ def test_split_bench_variants_still_match_the_sources(tmp_path):
     assert "0xFFFFFFF0u" in (pkg / "csrc" / "window.cu").read_text()
     wrapper = (pkg / "ops" / "sketch_cuda.py").read_text()
     assert "\nSPLIT_ROWS = 4\n" in wrapper and "\nSPLIT_MAX_THREADS = 1024\n" in wrapper
+    flags = (pkg / "csrc" / "flags.cu").read_text()  # the summary's ballots, the walk's shape
+    assert "__ballot_sync" not in flags
+    assert "constexpr int kWalkRows = 64, kWalkThreads = 256;" in flags
+    assert "\nFLAG_ROWS = 64\n" in wrapper and "\nFLAG_THREADS = 256\n" in wrapper
     assert not (pkg / "_build").exists()
     with pytest.raises(SystemExit, match="unknown part"):
         split_bench.variant(str(tmp_path / "other"), ["nothing"])

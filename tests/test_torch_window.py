@@ -674,50 +674,102 @@ def _flags_by_windows(val, L, w, off):
     return out
 
 
-def _flags_by_lastbad(val, L, w, off, band, segs):
-    """The flag kernel's formulation (csrc/flags.cu): a running last invalid
-    element down each column; a band of rows reads the w rows before it again
-    and is cut into segments, each with its carry from the segments before."""
+def _bit_len(x):
+    """Bits of each uint32 up to its highest set one (0 for 0)."""
+    x = x.astype(np.uint64)
+    n = np.zeros(x.shape, np.int64)
+    for b in range(32):
+        n = np.where(x >> np.uint64(b) != 0, b + 1, n)
+    return n
+
+
+def _flag_summary_np(val, L, w, off):
+    """The flag kernel's summary and scan (csrc/flags.cu): masks (tiles, C)
+    uint32, bit r for an invalid element 32t + r; P, the last invalid
+    element of tiles 0 .. t."""
+    n_el, C = L + w - 1, val.shape[1]
+    T = -(-n_el // 32)
+    masks = np.zeros((T, C), np.uint32)
+    for e in range(n_el):
+        masks[e // 32] |= (val[off + e] == 0).astype(np.uint32) << np.uint32(e % 32)
+    P = np.full((T, C), -1, np.int64)
+    run = np.full(C, -1, np.int64)
+    for t in range(T):
+        run = np.maximum(run, np.where(masks[t] != 0, 32 * t + _bit_len(masks[t]) - 1, -1))
+        P[t] = run
+    return masks, P
+
+
+def _flags_by_passes(val, L, w, off, rows):
+    """The flag kernel's walk over its summary: a segment of up to ``rows``
+    windows (``flag_segments``) starts from P of the tile before the one its
+    first window ends in, then takes the tiles where its windows end one at
+    a time: the
+    window ending at row r of tile t is valid iff the last invalid element
+    before the tile is below 32t + r - w + 1 and the tile's mask, smeared
+    upward by min(w, 32) - 1 rows, is clear at r; bit1 compares with the
+    row before, the last row of the tile before for r = 0."""
     C = val.shape[1]
-    n_el = L + w - 1
-    v = val[off : off + n_el]
+    masks, P = _flag_summary_np(val, L, w, off)
+    full = np.uint64(0xFFFFFFFF)
     out = np.full((L, C), -1, np.int8)
-    for b0 in range(0, n_el, band):
-        b1 = min(b0 + band, n_el)
-        lo = max(b0 - w, 0)
-        ln = -(-(b1 - lo) // segs)
-        bounds = [(min(lo + s * ln, b1), min(lo + (s + 1) * ln, b1)) for s in range(segs)]
-        last_of = np.full((segs, C), -1)
-        for s, (e0, e1) in enumerate(bounds):
-            for e in range(e0, e1):
-                last_of[s][v[e] == 0] = e
-        for s, (e0, e1) in enumerate(bounds):
-            first = max(e0, b0, w - 1)
-            if first >= e1:
-                continue
-            last = last_of[:s].max(axis=0, initial=-1) if s else np.full(C, -1)
-            for e in range(e0, first):
-                last[v[e] == 0] = e
-            before = (last < first - w) if first >= w else np.zeros(C, bool)
-            for e in range(first, e1):
-                last[v[e] == 0] = e
-                j = e - w + 1
-                ok = last < j
+    for j0, j1 in sc.flag_segments(L, w, rows).tolist():
+        e0, e1 = j0 + w - 1, j1 + w - 1
+        ta, tb = e0 // 32, (e1 - 1) // 32
+        carry = P[ta - 1].copy() if ta else np.full(C, -1, np.int64)
+        prev = (carry < 32 * ta - w).astype(np.uint64)
+        for t in range(ta, tb + 1):
+            base = 32 * t
+            m = masks[t].astype(np.uint64)
+            k = carry - base + w
+            shifted = (full << np.clip(k, 0, 31).astype(np.uint64)) & full
+            ok_a = np.where(k <= 0, full, np.where(k >= 32, 0, shifted)).astype(np.uint64)
+            s, cover = m.copy(), 1
+            while cover < min(w, 32):
+                sh = min(cover, min(w, 32) - cover)
+                s = (s | (s << np.uint64(sh))) & full
+                cover += sh
+            ok = ok_a & ~s & full
+            first = ok & ~(((ok << np.uint64(1)) & full) | prev)
+            prev = ok >> np.uint64(31)
+            carry = np.where(m != 0, base + _bit_len(m) - 1, carry)
+            for r in range(max(e0 - base, 0), min(e1 - base, 32)):
+                j = base + r - w + 1
                 assert (out[j] == -1).all()  # every window written once
-                out[j] = ok | ((ok & ~before) << 1)
-                before = ok
+                out[j] = ((ok >> np.uint64(r)) & np.uint64(1)) | (
+                    ((first >> np.uint64(r)) & np.uint64(1)) << np.uint64(1))
     assert (out >= 0).all()
     return out
 
 
-@pytest.mark.parametrize("w,band,segs", [(3, 1000, 4), (16, 40, 4), (16, 16, 3), (40, 100, 32),
-                                         (200, 333, 8), (200, 10_000, 5)])
-def test_window_flags_three_ways(w, band, segs):
+def _flags_three_ways(val, L, w, off, rows):
+    """``window_flags`` on the CPU, the kernel's passes and the two bits
+    stated window by window agree, also on a pitched val whose pad columns
+    hold 0s or 1s; returns the flags."""
+    want = _flags_by_windows(val, L, w, off)
+    sc.reset_counts()
+    got = sc.window_flags(torch.from_numpy(val), L, w, off)
+    assert sc.COUNTS["flags_plain"] == 1 and sc.COUNTS["flags"] == 0
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(_flags_by_passes(val, L, w, off, rows), want)
+    for pad in (0, 1):
+        vp = sc.pitched(val.shape[0], val.shape[1], torch.int8, torch.device("cpu"))
+        sc._padded(vp).fill_(pad)  # whatever the pad columns hold must not reach a flag
+        vp.copy_(torch.from_numpy(val))
+        fp = sc.window_flags(vp, L, w, off)
+        assert fp.stride(0) == vp.stride(0) and np.array_equal(fp.numpy(), want)
+    return want
+
+
+@pytest.mark.parametrize("w,rows,off", [(3, 1000, 4), (16, 40, 4), (16, 16, 3), (40, 100, 32),
+                                        (200, 333, 8), (200, 10_000, 5)])
+def test_window_flags_three_ways(w, rows, off):
     """``window_flags_ref`` against the two bits stated window by window and
-    against the kernel's `lastbad` formulation with its bands and segments,
+    against the kernel's passes (masks of 32-row tiles, their max-scan P,
+    segments of ``rows`` windows walked a tile at a time from their carry),
     on pitched and unpitched valid flags."""
-    rng = np.random.default_rng(w + band)
-    L, C, off = 3 * w + 7, 9, 5
+    rng = np.random.default_rng(w + rows)
+    L, C = 3 * w + 7, 9
     val = np.ones((off + L + w - 1 + 3, C), np.int8)
     val[rng.integers(0, val.shape[0], size=25), rng.integers(0, C - 2, size=25)] = 0
     val[:off, :] = 0                      # rows before `off` do not count
@@ -725,18 +777,89 @@ def test_window_flags_three_ways(w, band, segs):
     val[off, 2] = 0                       # the first element
     val[off + L + w - 2, 3] = 0           # the last
     val[:, C - 2] = 0
-    want = _flags_by_windows(val, L, w, off)
+    want = _flags_three_ways(val, L, w, off, rows)
     assert want[:, C - 1].tolist() == [3] + [1] * (L - 1) and not want[:, C - 2].any()
-    sc.reset_counts()
-    got = sc.window_flags(torch.from_numpy(val), L, w, off)
-    assert sc.COUNTS["flags_plain"] == 1 and sc.COUNTS["flags"] == 0
-    assert np.array_equal(got.numpy(), want)
-    assert np.array_equal(_flags_by_lastbad(val, L, w, off, band, segs), want)
-    vp = sc.pitched(val.shape[0], C, torch.int8, torch.device("cpu"))
-    sc._padded(vp).fill_(0)  # whatever the pad columns hold must not reach a flag
-    vp.copy_(torch.from_numpy(val))
-    fp = sc.window_flags(vp, L, w, off)
-    assert fp.stride(0) == vp.stride(0) and np.array_equal(fp.numpy(), want)
+
+
+@pytest.mark.parametrize("w,rows", [(1, 8), (31, 16), (32, 32), (33, 8), (70, 16), (100, 256)])
+def test_window_flags_edges(w, rows):
+    """Windows of 1 and around a tile's 32 rows, windows longer than a
+    segment, an invalid element on a tile's first and on its last row, an
+    offset that is not a multiple of 32, a column with every element
+    invalid, and 21 columns (not a multiple of 16)."""
+    rng = np.random.default_rng(7 * w + rows)
+    L, C, off = 2 * w + 45, 21, 37
+    n_el = L + w - 1
+    val = (rng.random((off + n_el + 5, C)) > 0.02).astype(np.int8)
+    val[:, 3] = 0                                  # every element invalid
+    val[:, 4:8] = 1
+    val[off + np.arange(0, n_el, 32), 4] = 0       # a tile's first row
+    val[off + np.arange(31, n_el, 32), 5] = 0      # a tile's last row
+    val[off + n_el - 1, 6] = 0                     # the last element
+    val[off, 7] = 0                                # the first
+    want = _flags_three_ways(val, L, w, off, rows)
+    assert not want[:, 3].any()
+    if w < 32:  # windows between the marked rows stay valid
+        assert want[:, 4].any() and want[:, 5].any()
+    assert want[L - 1, 6] == 0 and want[0, 7] == 0
+
+
+@pytest.mark.parametrize("w,off", [(1, 0), (33, 37), (100, 5)])
+def test_flag_summary_plain_version(w, off):
+    """``flag_summary`` on the CPU (its plain version) against masks and P
+    built bit by bit with numpy."""
+    rng = np.random.default_rng(w)
+    L, C = 3 * w + 50, 19
+    val = (rng.random((off + L + w + 4, C)) > 0.05).astype(np.int8)
+    val[:, 2] = 0
+    val[off + 31, 5] = 0
+    masks, P = sc.flag_summary(torch.from_numpy(val), L, w, off)
+    want_m, want_p = _flag_summary_np(val, L, w, off)
+    assert masks.dtype == P.dtype == torch.int32
+    assert masks.shape == P.shape == (-(-(L + w - 1) // 32), C)
+    assert np.array_equal(masks.numpy().view(np.uint32), want_m)
+    assert np.array_equal(P.numpy(), want_p)
+
+
+@pytest.mark.parametrize("C,L,w", [(32_577, 4_121, 1000), (6_670, 20_123, 5000),
+                                   (3_345, 40_125, 10_000), (209, 80_274, 20_000)])
+def test_flag_launch(C, L, w):
+    """The walk's geometry on a card of 132 SMs at the chip's shapes: every
+    window owned by exactly one thread, enough blocks for the card, the
+    threads' rows independent of w, and a thread's masks a few tiles."""
+    rows, blocks = sc.flag_launch(C, L, w)
+    seg = sc.flag_segments(L, w, rows)
+    groups, segs = -(-C // sc.FLAG_COLS), seg.shape[0]
+    assert rows == sc.FLAG_ROWS and segs <= -(-L // rows) + 1
+    assert (blocks - 1) * sc.FLAG_THREADS < groups * segs <= blocks * sc.FLAG_THREADS
+    owned = np.zeros(L, np.int64)
+    for j0, j1 in seg.tolist():
+        assert 0 <= j0 < j1 <= L and j1 - j0 <= rows
+        owned[j0:j1] += 1
+    assert (owned == 1).all()
+    assert blocks >= 2 * 132
+    for w2 in (1, w + 999):  # as many threads whatever w
+        assert abs(sc.flag_launch(C, L, w2)[1] - blocks) <= -(-groups // sc.FLAG_THREADS)
+    # a segment's windows end in one tile of masks (rows = 32, tile-aligned)
+    ends = seg + w - 1
+    assert ((ends[:, 1] - 1) // 32 - ends[:, 0] // 32 <= max(0, rows // 32 - 1)).all()
+    # masks and P: a row a tile, whole 128-byte lines of 32 columns for the
+    # scan's blocks and whole 64-column groups for the summary's warps
+    T, m_pitch = sc.flag_scratch(C, L, w)
+    assert T * 32 >= L + w - 1 > (T - 1) * 32 and m_pitch % 128 == 0 and m_pitch >= C
+
+
+def test_window_flags_refuses_misaligned_val():
+    """The kernel loads 16 bytes of a row at a time: a val whose start or
+    pitch is off 16 bytes is refused."""
+    buf = torch.zeros(40 * 32 + 16, dtype=torch.int8)
+    base = (-buf.data_ptr()) % 16
+    sc._check_flag_val(buf[base : base + 40 * 32].view(40, 32))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sc._check_flag_val(buf[base + 1 : base + 1 + 40 * 32].view(40, 32))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        sc._check_flag_val(buf[base : base + 40 * 24].view(40, 24))
+    sc._check_flag_val(sc.pitched(40, 21, torch.int8, torch.device("cpu")))
 
 
 def test_window_flags_refuses_short_input():
