@@ -72,9 +72,15 @@ A. general  100 Mbp as 20 seeded draft scaffolds of 5 Mbp (the genome of
 B. mk       the Mann-Kendall S (ops/mannkendall.py) of 4,096 runs of 2-2,048
             positions and two of 100,000: the S kernel bit-equal to its
             plain version on the card, and the op on the card to the CPU,
-            the verdicts against the host scalar test; the kernel's time
-            beside the plain version's, the op's, the CPU's and the scalar
-            test's; the pairs and the kernel's bound
+            the verdicts against the host scalar test; bit-equal also on a
+            run of 2^19 (both timed), an equal and a strictly decreasing
+            run of 100,000 and a batch of lengths 0, 1 and more; the
+            kernel's time back to back and queued beside the plain
+            version's, the public op's, the scaffolder's route's (lengths
+            checked on the host), the CPU's and the scalar test's; the
+            launches of its two passes; its bound (the bytes it must move,
+            and the search steps of ops/mannkendall.mk_steps) beside the
+            runs' pairs and the bytes of its own scratch of sorted tiles
 C. draft    phase 8 again with an N-dense draft target (~5 Mbp scaffolds, a
             gap every 2-8 kbp, misjoined blocks) and mkt=True: 13 artifacts
             byte-equal, the target on the general path, the op on the card;
@@ -119,7 +125,7 @@ import time
 import numpy as np
 import torch
 
-from ntjoin_tpu_torch import kernel_prof
+from ntjoin_tpu_torch import kernel_prof, split_bench
 from ntjoin_tpu_torch.core import orientation
 from ntjoin_tpu_torch.core.assembly import AssemblySketch, SharedIndex
 from ntjoin_tpu_torch.dryrun import dryrun_multichip
@@ -146,9 +152,6 @@ W_GMEM = 10_000  # a window no tile holds: the device-memory route's
 # gives none).
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
-# Operations of the Mann-Kendall S kernel a pair: two comparisons, their
-# difference and the add.
-MK_OPS_PER_PAIR = 4
 SOURCES = {
     "hash": ("ntjoin_tpu_torch/csrc/hash.cu", "ntjoin_tpu/ops/sketch_pallas.py:107"),
     "window_emit": ("ntjoin_tpu_torch/csrc/window_emit.cu",
@@ -1289,38 +1292,115 @@ def distributed_phase(work: str, args: list[str]) -> dict[str, int]:
 # -- phase B: Mann-Kendall ------------------------------------------------------------
 
 
+def _mk_bound(batches, host_lengths) -> dict:
+    """The S kernel's bound: what the function must move, the valid values
+    read once (8 bytes each; the padding is never read), the lengths in and
+    S out; its binary-search steps (``mk.mk_steps``), one operation a step.
+    ``scratch_bytes`` is the design's own traffic, not in the bound: rows of
+    several tiles write their sorted tiles and read them once more."""
+    nbytes = steps = scratch = 0
+    for (p, _), n in zip(batches, host_lengths):
+        width = int(p.shape[1])
+        nbytes += 8 * int(n.sum()) + 16 * len(n)
+        if width > mk.MK_TILE:
+            scratch += 16 * int(n.sum())
+        steps += mk.mk_steps(n, width)
+    return {**bound(nbytes, steps), "steps": steps, "scratch_bytes": scratch}
+
+
+def _long_row(n: int, seed: int = 72) -> list[int]:
+    """A run of n positions, sorted with a fifth of its values moved."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.integers(0, 2**40, size=n))
+    swap = rng.random(n) < 0.2
+    x[swap] = rng.integers(0, 2**40, size=int(swap.sum()))
+    return x.tolist()
+
+
+def _mk_rows() -> float:
+    """The S kernel on four more inputs, each bit-equal to its plain version
+    on the card: a row of 2^19 values (the kernel's and the plain version's
+    times), an all-equal and a strictly decreasing row of 100,000, and one
+    batch of rows of length 0, 1 and more with garbage past each length.
+    Returns the largest difference (0)."""
+    n19, n = 1 << 19, 100_000
+    cases = []
+    for what, run, want in (("2^19 values, 20% moved", _long_row(n19), None),
+                            ("100,000 equal values", [5] * n, 0),
+                            ("100,000 decreasing values", list(range(7 * n, 0, -7)),
+                             -(n * (n - 1) // 2))):
+        ((_, pos, lengths),) = orientation._mk_batches([run])
+        cases.append((what, torch.from_numpy(pos).cuda(), torch.from_numpy(lengths).cuda(),
+                      want))
+    short = [[], [3], [], [9], [4, 4, 1, 8, 8, 2, 7, 7], [6, 2, 9, 1, 5]]
+    rng = np.random.default_rng(73)
+    pos = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, size=(len(short), 8)))
+    for row, r in enumerate(short):
+        pos[row, : len(r)] = torch.tensor(r, dtype=torch.int64)
+    cases.append(("a batch of lengths 0, 1, 0, 1, 8, 5", pos.cuda(),
+                  torch.tensor([len(r) for r in short]).cuda(), None))
+    err = 0.0
+    for what, p, n, want in cases:
+        got = mk.mk_s_batch(p, n)
+        err = max(err, _compare(f"mann-kendall S kernel ({what})", (got,),
+                                (mk.mk_s_batch_ref(p, n),)))
+        if want is not None and got.tolist() != [want]:
+            fail(f"mann-kendall ({what}): S {got.tolist()}, want {want}")
+        if got[n < 2].any():
+            fail(f"mann-kendall ({what}): a row of length 0 or 1 has S != 0")
+        tile, _, _, pairs, _ = mk.mk_launch(*p.shape)
+        line = (f"   S kernel on {what} (B={p.shape[0]}, width {p.shape[1]}, tiles of {tile}, "
+                f"{pairs} tile pairs a row): S {got.tolist()} bit-equal to the plain version; "
+                f"{_time_ms(lambda p=p, n=n: mk._mk_s_kernel(p, n), 5):.4f} ms")
+        if p.shape[1] >= n19:
+            plain_ms = _time_ms(lambda p=p, n=n: mk.mk_s_batch_ref(p, n), 1)
+            line += f", the plain version {plain_ms:.1f} ms"
+        say(line)
+    return err
+
+
 def mann_kendall() -> dict:
     """Phase B: the batched Mann-Kendall S on the card against the CPU, on
     runs of the sizes a 1 Gbp path gives: the S kernel against its plain
-    version on the card, its time beside the plain version's, the op's and
-    the host scalar route's on the same runs, and the verdicts of both.
-    Returns the kernel's time, plain time and bound."""
-    rng = np.random.default_rng(71)
-    lengths = [int(n) for n in rng.integers(2, 2049, size=4096)] + [100_000, 100_000]
-    runs = []
-    for n in lengths:
-        x = np.sort(rng.integers(0, 50_000_000, size=n))
-        swap = rng.random(n) < 0.2
-        x[swap] = rng.integers(0, 50_000_000, size=int(swap.sum()))
-        runs.append((x if rng.random() < 0.5 else x[::-1]).tolist())
-    batches = [(torch.from_numpy(pos).cuda(), torch.from_numpy(lengths).cuda())
-               for _, pos, lengths in orientation._mk_batches(runs)]
+    version on the card (and on four more inputs, ``_mk_rows``), its time
+    back to back and queued beside the plain version's, the public op's,
+    the ``_mk_s`` route's and the host scalar route's on the same runs, the
+    launches of its two passes, and the verdicts of both.  Returns the
+    kernel's times and bound."""
+    runs = split_bench.mk_runs()
+    packed = [(pos, n) for _, pos, n in orientation._mk_batches(runs)]
+    batches = [(torch.from_numpy(pos).cuda(), torch.from_numpy(n).cuda()) for pos, n in packed]
+    host_lengths = [n for _, n in packed]
     err = _compare("mann-kendall S kernel", [mk.mk_s_batch(p, n) for p, n in batches],
                    [mk.mk_s_batch_ref(p, n) for p, n in batches])
+    err = max(err, _mk_rows())
 
     def kernel():
-        for pos, lengths in batches:
-            mk._mk_s_kernel(pos, lengths)
+        for pos, n in batches:
+            mk._mk_s_kernel(pos, n)
 
     def op():
-        for pos, lengths in batches:
-            mk.mk_s_batch(pos, lengths)
+        for pos, n in batches:
+            mk.mk_s_batch(pos, n)
+
+    def route():  # the op as core.orientation._mk_s calls it: lengths checked on the host
+        for (pos, _), n in zip(batches, host_lengths):
+            mk.mk_s_batch_host(pos, n)
 
     def plain():
-        for pos, lengths in batches:
-            mk.mk_s_batch_ref(pos, lengths)
+        for pos, n in batches:
+            mk.mk_s_batch_ref(pos, n)
 
-    kernel_ms, op_ms, plain_ms = _time_ms(kernel, 5), _time_ms(op, 5), _time_ms(plain, 1)
+    launched = sc.COUNTS["mk_s"]
+    kernel()
+    launched = sc.COUNTS["mk_s"] - launched
+    sort_launches = len(batches)  # pass 2 only where a row has several tiles
+    cross_launches = sum(mk.mk_launch(*p.shape)[3] > 0 for p, _ in batches)
+    if launched != sort_launches + cross_launches:
+        fail(f"mann-kendall: {launched} launches of the S kernel over {len(batches)} batches, "
+             f"want {sort_launches} + {cross_launches}")
+    kernel_ms, queued_ms = _time_ms(kernel, 5), _time_queued_ms(kernel, 2)
+    op_ms, route_ms, plain_ms = _time_ms(op, 5), _time_ms(route, 5), _time_ms(plain, 1)
     mk.reset_counts()
     t0 = time.monotonic()
     s_card = orientation._mk_s(runs, torch.device("cuda"))
@@ -1344,18 +1424,21 @@ def mann_kendall() -> dict:
         f"version's on the card, and on the card and the CPU; verdicts "
         f"{sum(v == '+' for v in scalar)} +, {sum(v == '-' for v in scalar)} -, "
         f"{sum(v == '?' for v in scalar)} ? as the scalar route's")
-    pairs = sum(n * (n - 1) // 2 for n in lengths)
-    padded = sum(int(p.shape[0]) * int(p.shape[1]) * (int(p.shape[1]) - 1) // 2
-                 for p, _ in batches)
-    out = {"ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": err, "library_ms": None,
-           **bound(8 * sum(p.numel() + n.numel() for p, n in batches),
-                   MK_OPS_PER_PAIR * pairs)}
-    say(f"   {pairs} pairs in the runs ({padded} padded); the S kernel {kernel_ms:.3f} ms for "
-        f"{len(batches)} batches, the op with its argument checks {op_ms:.3f} ms, the plain "
+    pairs = sum(len(r) * (len(r) - 1) // 2 for r in runs)
+    out = {"ms": kernel_ms, "queued_ms": queued_ms, "plain_ms": plain_ms, "max_abs_err": err,
+           "library_ms": None, **_mk_bound(batches, host_lengths)}
+    by, op_bound = out["bound_bytes"] / PEAK_BYTES_S * 1e3, out["steps"] / PEAK_OPS_S * 1e3
+    say(f"   the S kernel {kernel_ms:.4f} ms for {len(batches)} batches back to back, "
+        f"{queued_ms:.4f} ms queued behind a spinning kernel ({sort_launches} pass 1 and "
+        f"{cross_launches} pass 2 launches); the public op with its checks {op_ms:.4f} ms, "
+        f"the op on _mk_s's route (lengths checked on the host) {route_ms:.4f} ms, the plain "
         f"version {plain_ms:.3f} ms (CUDA events); bound {out['bound_ms']:.4f} ms by "
-        f"{out['bound_by']} ({MK_OPS_PER_PAIR} a pair at {PEAK_OPS_S:.3g} a second); with the "
-        f"host's packing and copies {card_s:.3f} s; the plain version on the CPU "
-        f"{cpu_s:.3f} s; the host scalar route {scalar_s:.3f} s")
+        f"{out['bound_by']}: {out['bound_bytes']} bytes {by:.4f} ms, {out['steps']} search "
+        f"steps {op_bound:.4f} ms at {PEAK_OPS_S:.3g} a second ({pairs} pairs in the runs; "
+        f"the design's own scratch of sorted tiles, outside the bound, "
+        f"{out['scratch_bytes']} bytes {out['scratch_bytes'] / PEAK_BYTES_S * 1e3:.4f} ms); "
+        f"_mk_s with the host's packing and copies {card_s:.3f} s; the plain version on the "
+        f"CPU {cpu_s:.3f} s; the host scalar route {scalar_s:.3f} s")
     return out
 
 
@@ -1613,7 +1696,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": counts[name],
          **{key: times[name][key] for key in JSON_KEYS + ("bound_bytes",)},
-         **{key: times[name][key] for key in ("launch_floor_ms",) if key in times[name]},
+         **{key: times[name][key] for key in ("launch_floor_ms", "queued_ms")
+            if key in times[name]},
          **({"launches_general": general_path[name]["launches"]}
             if name in general_path else {}),
          **({"general_ms": general_path[name]["ms"]} if name in general_path else {}),

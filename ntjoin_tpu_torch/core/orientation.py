@@ -18,7 +18,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ntjoin_tpu_torch.ops.mannkendall import mk_s_batch
+from ntjoin_tpu_torch.ops.mannkendall import mk_s_batch_host
 
 
 def _norm_sf(x: float) -> float:
@@ -127,12 +127,17 @@ def _mk_batches(runs: list[Sequence[int]]):
 
 
 def _mk_s(runs: list[Sequence[int]], device: torch.device) -> list[int]:
-    """Exact S of each run by ``mk_s_batch`` on ``device``, a batch for each
-    padded length."""
+    """Exact S of each run by ``mk_s_batch_host`` on ``device``, a batch for
+    each padded length: the lengths built here are checked on the host, the
+    batches are queued without a wait, and S is read back once."""
     out = [0] * len(runs)
+    order, parts = [], []
     for idx, pos, lengths in _mk_batches(runs):
-        s = mk_s_batch(torch.from_numpy(pos).to(device), torch.from_numpy(lengths).to(device))
-        for j, v in zip(idx, s.tolist()):
+        order += idx
+        parts.append(mk_s_batch_host(torch.from_numpy(pos).to(device, non_blocking=True),
+                                     lengths))
+    if parts:
+        for j, v in zip(order, torch.cat(parts).tolist()):
             out[j] = v
     return out
 

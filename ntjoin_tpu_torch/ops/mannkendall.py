@@ -5,8 +5,8 @@ With ``mkt`` the orientation of a contig run whose minimizer positions are
 not monotonic is the Mann-Kendall original test's verdict (reference
 ``ntjoin_assemble.py:37-40`` via pymannkendall).  ``core.orientation.
 determine_orientations`` sends every such run of a path through
-``mk_s_batch`` on the scaffolder's device and finishes each on the host in
-float64 (``_mk_finish``), so that p and z are those of the scalar test.
+``mk_s_batch_host`` on the scaffolder's device and finishes each on the host
+in float64 (``_mk_finish``), so that p and z are those of the scalar test.
 
 The S statistic, a sum of +-1 over the n(n-1)/2 ordered pairs of a run, is
 accumulated in int64: exact for any run a genome gives.  The JAX package's
@@ -22,12 +22,19 @@ sized from B and L so that a live (B, block, L) boolean tensor stays within
 ``BLOCK_BYTES``: that is the plain version, ``mk_s_batch_ref``.
 
 On a CUDA tensor ``mk_s_batch`` launches a kernel (``csrc/mannkendall.cu``)
-that counts the pairs in registers, tile pair by tile pair, with no boolean
-tensor and no sort; its launches count in ``sketch_cuda.COUNTS["mk_s"]``,
-the plain version's calls in ``["mk_s_plain"]``.
+that counts S during a merge sort of each row: tiles of up to ``MK_TILE``
+values sorted in shared memory, each element counting the values of its
+sibling run below and above it, then the pairs across a row's sorted tiles
+(O(n log^2 n) steps, no boolean tensor); its launches count in
+``sketch_cuda.COUNTS["mk_s"]``, the plain version's calls in
+``["mk_s_plain"]``.  ``core.orientation._mk_s`` checks the lengths it
+built on the host and calls ``mk_s_batch_host``, which reads nothing back
+from the card; it queues each batch's upload without a wait and reads every
+batch's S back at once.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ntjoin_tpu_torch.ops import sketch_cuda as sc
@@ -87,38 +94,81 @@ def mk_s_batch_ref(positions: torch.Tensor, lengths: torch.Tensor) -> torch.Tens
     return 2 * greater - lengths * (lengths - 1) // 2 + tied
 
 
-# Thread blocks of the S kernel: 256 threads; past ``MK_MAX_BLOCKS`` each
-# block walks items a grid apart.
-MK_THREADS = 256
+# The S kernel (``csrc/mannkendall.cu``): tiles of up to ``MK_TILE`` values
+# (two int64 buffers of it fill 32 KB of static shared memory) and at least
+# ``MK_MIN_TILE`` (a warp's lanes lie in one row); past ``MK_MAX_BLOCKS``
+# each thread block walks items a grid apart.
+MK_TILE = 2048
+MK_MIN_TILE = 32
 MK_MAX_BLOCKS = 1 << 20
 
 
-def mk_launch(b: int, width: int) -> tuple[int, int, int]:
-    """(tile, tile pairs a row, thread blocks) of the S kernel on a (b,
-    width) batch: a tile is 256 values, or the least of 32, 64, 128 that
-    holds a whole row; a row of nt tiles has nt (nt + 1) / 2 pairs ti <= tj,
-    numbered p = tj (tj + 1) / 2 + ti; a block takes ``MK_THREADS // tile``
-    (row, pair) items."""
-    tile = next((t for t in (32, 64, 128) if width <= t), 256)
+def mk_tile(width: int) -> int:
+    """Values of the S kernel's tiles on rows of ``width``: the least power
+    of two that holds a row, within [MK_MIN_TILE, MK_TILE]."""
+    return min(MK_TILE, max(MK_MIN_TILE, 1 << (max(width, 1) - 1).bit_length()))
+
+
+def mk_launch(b: int, width: int) -> tuple[int, int, int, int, int]:
+    """(tile, rows a block, pass 1 thread blocks, tile pairs a row, pass 2
+    thread blocks) of the S kernel on a (b, width) batch.  Pass 1 takes a
+    (block of rows, tile) item a block: rows of one tile share a block,
+    ``MK_TILE // tile`` at a time.  A row of nt > 1 tiles (then tile ==
+    ``MK_TILE``) has nt (nt - 1) / 2 pairs ti < tj for pass 2, numbered p = tj
+    (tj - 1) / 2 + ti, a (row, pair) item a block; none where nt == 1."""
+    tile = mk_tile(width)
     nt = -(-width // tile)
-    pairs = nt * (nt + 1) // 2
-    return tile, pairs, min(MK_MAX_BLOCKS, -(-b * pairs // (MK_THREADS // tile)))
+    rows = MK_TILE // tile if nt == 1 else 1
+    pairs = nt * (nt - 1) // 2
+    return (tile, rows, min(MK_MAX_BLOCKS, -(-b // rows) * nt), pairs,
+            min(MK_MAX_BLOCKS, b * pairs))
 
 
-def _check_batch(positions: torch.Tensor, lengths: torch.Tensor) -> None:
+def mk_steps(lengths: np.ndarray, width: int) -> int:
+    """Binary-search steps the S kernel takes on rows of these lengths padded
+    to ``width``.  At merge level r (runs of r values) each value with a
+    non-empty sibling run searches it once in bit_length(r) steps; each
+    value of a tile then searches the sorted tile once, in bit_length(tile)
+    steps, for its ties.  In pass 2 each value of tile tj searches each
+    earlier, full, tile twice, in bit_length(tile) steps."""
+    n = np.asarray(lengths, np.int64)
+    tile = mk_tile(width)
+    full, last = n // tile, n % tile
+    steps = n * tile.bit_length()  # the ties
+    r = 1
+    while r < tile:
+        for m, count in ((tile, full), (last, 1)):
+            pairs, rem = m // (2 * r), m % (2 * r)
+            right = np.maximum(rem - r, 0)  # the last pair's right run
+            paired = np.where(right > 0, r + right, 0)  # its values with a sibling
+            steps += count * (pairs * 2 * r + paired) * r.bit_length()
+        r *= 2
+    full_pairs = full * (full - 1) // 2  # pass 2: the full tiles, then the last
+    steps += 2 * tile.bit_length() * (tile * full_pairs + last * full)
+    return int(steps.sum())
+
+
+def _check_positions(positions: torch.Tensor) -> None:
     if positions.dtype != torch.int64 or positions.dim() != 2:
         raise ValueError(f"mk_s_batch: want int64 positions (B, W), got {positions.dtype} "
                          f"{tuple(positions.shape)}")
+
+
+def _check_range(lo: int, hi: int, width: int) -> None:
+    if lo < 0 or hi > width:
+        raise ValueError(f"mk_s_batch: lengths in [{lo}, {hi}], want [0, {width}]")
+
+
+def _check_batch(positions: torch.Tensor, lengths: torch.Tensor) -> None:
+    _check_positions(positions)
     if lengths.dtype != torch.int64 or tuple(lengths.shape) != positions.shape[:1]:
         raise ValueError(f"mk_s_batch: want int64 lengths ({positions.shape[0]},), got "
                          f"{lengths.dtype} {tuple(lengths.shape)}")
     if lengths.device != positions.device:
         raise ValueError(f"lengths on {lengths.device}, positions on {positions.device}")
     if lengths.numel():
-        lo, hi = (int(v) for v in torch.aminmax(lengths))
-        if lo < 0 or hi > positions.shape[1]:
-            raise ValueError(f"mk_s_batch: lengths in [{lo}, {hi}], want [0, "
-                             f"{positions.shape[1]}]")
+        lo, hi = (int(v) for v in torch.aminmax(lengths))  # a sync on the card
+        _check_range(lo, hi, positions.shape[1])
 
 
 def mk_s_batch(positions: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -127,6 +177,26 @@ def mk_s_batch(positions: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     row's length are ignored.  Returns int64 (B,) on the tensors' device:
     the S kernel for CUDA tensors, ``mk_s_batch_ref`` for CPU ones."""
     _check_batch(positions, lengths)
+    return _mk_s_checked(positions, lengths)
+
+
+def mk_s_batch_host(positions: torch.Tensor, lengths: np.ndarray) -> torch.Tensor:
+    """``mk_s_batch`` with the lengths as an int64 numpy array, checked on
+    the host: nothing is read back from the card before the kernel."""
+    _check_positions(positions)
+    if lengths.dtype != np.int64 or lengths.shape != positions.shape[:1]:
+        raise ValueError(f"mk_s_batch: want int64 lengths ({positions.shape[0]},), got "
+                         f"{lengths.dtype} {lengths.shape}")
+    if lengths.size:
+        _check_range(int(lengths.min()), int(lengths.max()), positions.shape[1])
+    # queued without waiting for the card: the CUDA runtime stages pageable
+    # memory before the copy call returns
+    return _mk_s_checked(positions,
+                         torch.from_numpy(lengths).to(positions.device, non_blocking=True))
+
+
+def _mk_s_checked(positions: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """S of checked arguments on their device."""
     COUNTS["mk_batches"] += 1
     COUNTS["mk_runs"] += positions.shape[0]
     COUNTS["device"] = positions.device.type
@@ -136,16 +206,22 @@ def mk_s_batch(positions: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
 
 def _mk_s_kernel(positions: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """The S kernel on checked contiguous CUDA tensors."""
+    """The S kernel on checked contiguous CUDA tensors: one call into the
+    library launches pass 1 and, where a row has several tiles, pass 2 (each
+    counted in ``mk_s``); the sorted tiles' scratch lives only here."""
     b, width = positions.shape
-    s = torch.zeros(b, dtype=torch.int64, device=positions.device)
     if b == 0 or width < 2:
-        return s
-    tile, _, blocks = mk_launch(b, width)
+        return torch.zeros(b, dtype=torch.int64, device=positions.device)
+    s = torch.empty(b, dtype=torch.int64, device=positions.device)  # the kernel writes S
+    tile, _, sort_blocks, pairs, cross_blocks = mk_launch(b, width)
+    srt = torch.empty_like(positions) if pairs else None
     with torch.cuda.device(positions.device):
         err = sc._lib().nj_mk_s(positions.data_ptr(), b, width, lengths.data_ptr(), tile,
-                                blocks, s.data_ptr(), sc._stream(positions))
-    sc._launched(err, "mk_s")
+                                sort_blocks, cross_blocks,
+                                None if srt is None else srt.data_ptr(), s.data_ptr(),
+                                sc._stream(positions))
+    sc._raise_on(err, "mk_s")
+    sc.add_count("mk_s", 2 if pairs else 1)
     return s
 
 

@@ -218,7 +218,7 @@ def _lib():
             "nj_stream_gather": [p, i64, p, i64, i64, i64, i64, i64, p, i64, p, p, p, p],
             "nj_stream_chunks": [p, p, i64, i64, i64, i32, p, i64, p, i64, p],
             "nj_stream_decode": [p, i64, i64, i64, i64, i64, p, i64, p, p, i64, p, p],
-            "nj_mk_s": [p, i64, i64, p, i32, i64, p, p],
+            "nj_mk_s": [p, i64, i64, p, i32, i64, i64, p, p, p],
             "nj_noop": [p],
         }
         for name, args in sigs.items():

@@ -8,6 +8,7 @@ for tuning them and for comparing two trees in one call.
                                                    [noballot] [rows=N] [threads=N]
                                                    [flagrows=N] [flagthreads=N]
     python -m ntjoin_tpu_torch.split_bench stream [--quick]
+    python -m ntjoin_tpu_torch.split_bench mk
 
 ``times`` holds each op bit-equal to its plain version and prints one JSON
 line per (window, stream) with CUDA-event milliseconds: 2^24 bases at w=10,
@@ -37,7 +38,16 @@ the plain version's first (``--unchecked``: not), and the whole general
 call (``sketch_general_torch``, ``call_ms``); on a tree whose
 compaction still makes a position for every rank (its ``_positions``) it
 times that tree's passes, so that a copy of this file in such a tree's
-package compares the two in one call.  Exits 2 without a CUDA device.
+package compares the two in one call.  ``mk`` times the Mann-Kendall S
+kernel queued (``queued_ms``) on ``chip_smoke.py`` phase B's runs
+(``mk_runs``), the 64 batches and each run of 100,000 alone, each held
+bit-equal to the plain version first, and traces the 64 batches queued
+and back to back with torch.profiler (``trace_queued``, ``trace``: the
+kernels, their device time, the span, its idle share and the SMs the
+grids could fill).  It calls only ``_mk_s_kernel`` and ``mk_s_batch_ref``,
+which every tree with the S kernel has, so a copy of this file in another
+tree's package times that tree.  Exits 2 without a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ import json
 import os
 import shutil
 import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -247,6 +258,85 @@ def stream(quick: bool) -> None:
         del h, val, hs, vs, extra, hflat, vflat, flat, starts, host
 
 
+def mk_runs(seed: int = 71) -> list[list[int]]:
+    """The Mann-Kendall cell (``chip_smoke.py`` phase B): 4,096 runs of
+    2-2,048 positions and two of 100,000, each sorted with a fifth of its
+    values moved, half of them reversed."""
+    rng = np.random.default_rng(seed)
+    lengths = [int(n) for n in rng.integers(2, 2049, size=4096)] + [100_000, 100_000]
+    runs = []
+    for n in lengths:
+        x = np.sort(rng.integers(0, 50_000_000, size=n))
+        swap = rng.random(n) < 0.2
+        x[swap] = rng.integers(0, 50_000_000, size=int(swap.sum()))
+        runs.append((x if rng.random() < 0.5 else x[::-1]).tolist())
+    return runs
+
+
+def _trace(fn, queued: bool) -> dict:
+    """One call of fn under torch.profiler (behind a spinning kernel where
+    ``queued``): its kernels' count (the op's own fills included), their
+    device time, the span from the
+    first one's start to the last one's end, the share of that span in which
+    no kernel ran, and the SMs that the launches' grids could fill (at most
+    132, weighted by each launch's time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if queued:
+            torch.cuda._sleep(20_000_000)
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path, encoding="utf-8") as fh:
+            events = json.load(fh)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("grid", [0, 1, 1]))
+                   for e in events if e.get("cat") == "kernel" and "spin_kernel" not in e["name"])
+    if not spans:
+        return {"kernels": 0, "device_ms": "not measured (no kernel in the trace)"}
+    busy, end = 0.0, spans[0][0]
+    for lo, hi, _ in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    device = sum(hi - lo for lo, hi, _ in spans)
+    sms = sum((hi - lo) * min(132, g[0] * g[1] * g[2]) for lo, hi, g in spans) / device
+    span = spans[-1][1] - spans[0][0]
+    return {"kernels": len(spans), "device_ms": device / 1e3, "span_ms": span / 1e3,
+            "idle_share": 1 - busy / span, "sms": sms}
+
+
+def mk() -> None:
+    """The S kernel (``mannkendall._mk_s_kernel``) queued behind a spinning
+    kernel, on the Mann-Kendall cell's 64 batches and on each run of
+    100,000 alone, S held bit-equal to the plain version first; and a trace
+    of the 64 batches, queued and back to back."""
+    from ntjoin_tpu_torch.core import orientation
+    from ntjoin_tpu_torch.ops import mannkendall as mk_op
+
+    def on_card(runs):
+        return [(torch.from_numpy(pos).cuda(), torch.from_numpy(n).cuda())
+                for _, pos, n in orientation._mk_batches(runs)]
+
+    def kernel(batches):
+        return [mk_op._mk_s_kernel(p, n) for p, n in batches]
+
+    runs = mk_runs()
+    for what, batches in (("phase B", on_card(runs)), ("100,000 a", on_card(runs[-2:-1])),
+                          ("100,000 b", on_card(runs[-1:]))):
+        _same(f"S kernel ({what})", kernel(batches),
+              [mk_op.mk_s_batch_ref(p, n) for p, n in batches])
+        out = {"cell": what, "batches": len(batches),
+               "queued_ms": _queued_ms(lambda b=batches: kernel(b), 2)}
+        if what == "phase B":
+            out["trace_queued"] = _trace(lambda b=batches: kernel(b), True)
+            out["trace"] = _trace(lambda b=batches: kernel(b), False)
+        print(json.dumps(out), flush=True)
+
+
 # What ``variant`` rewrites, by file under the package: (find, replace).
 _PARTS = {
     "noscan": ("csrc/vanherk.cuh", [
@@ -317,7 +407,7 @@ def variant(dst: str, what: list[str]) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if not argv or argv[0] not in ("times", "sweep", "variant", "stream"):
+    if not argv or argv[0] not in ("times", "sweep", "variant", "stream", "mk"):
         print(__doc__, file=sys.stderr)
         return 2
     if argv[0] == "variant":
@@ -338,6 +428,8 @@ def main(argv: list[str] | None = None) -> int:
     elif argv[0] == "stream":
         _CHECKED = "--unchecked" not in argv[1:]
         stream("--quick" in argv[1:])
+    elif argv[0] == "mk":
+        mk()
     else:
         sweep()
     return 0

@@ -211,8 +211,9 @@ def test_mk_s_batch_cpu_takes_the_plain_version():
 
 
 def _tile_pair(p: int) -> tuple[int, int]:
-    """(ti, tj) of tile pair p = tj (tj + 1) / 2 + ti by the S kernel's own
-    arithmetic: the root in float64, then corrected."""
+    """(ti, t), ti <= t, of p = t (t + 1) / 2 + ti by the S kernel's own
+    arithmetic: the root in float64, then corrected.  Pass 2 takes the tile
+    pair (ti, t + 1)."""
     t = int((math.sqrt(8.0 * p + 1.0) - 1.0) * 0.5)
     while t * (t + 1) // 2 > p:
         t -= 1
@@ -221,37 +222,223 @@ def _tile_pair(p: int) -> tuple[int, int]:
     return p - t * (t + 1) // 2, t
 
 
-@pytest.mark.parametrize("width", [8, 32, 33, 100, 128, 129, 257, 1000, 4100])
+@pytest.mark.parametrize("width", [8, 32, 33, 100, 128, 129, 257, 1000, 4100,
+                                   2047, 2048, 2049, 6145])
 def test_mk_tiles_cover_every_pair_once(width):
-    """The (i-tile, j-tile) pairs of a row are each ti <= tj once, and with
-    the kernel's masks (a row's length, j > i on the diagonal) they hold
-    exactly n (n - 1) / 2 pairs for every length n up to the width."""
-    tile, pairs, blocks = mk.mk_launch(3, width)
+    """Pass 1's items hold each (row, tile) once, pass 2's tile pairs are
+    each ti < tj once, in order, and the pairs inside the tiles (merged in
+    pass 1) and across them (pass 2) hold exactly n (n - 1) / 2 pairs for
+    every length n up to the width."""
+    b = 3
+    tile, rows, sort_blocks, pairs, cross_blocks = mk.mk_launch(b, width)
     nt = -(-width // tile)
-    tiles = [_tile_pair(p) for p in range(pairs)]
-    assert tiles == [(i, j) for j in range(nt) for i in range(j + 1)]  # in order, each once
-    assert blocks == -(-3 * pairs // (mk.MK_THREADS // tile))
-    assert tile == min(256, max(32, 1 << (width - 1).bit_length()))
+    assert tile == mk.mk_tile(width) == min(2048, max(32, 1 << (width - 1).bit_length()))
+    assert rows == (2048 // tile if nt == 1 else 1)
+    items = [(item // nt * rows + g, item % nt) for item in range(sort_blocks)
+             for g in range(rows)]
+    assert sorted(it for it in items if it[0] < b) == [(r, t) for r in range(b)
+                                                        for t in range(nt)]
+    assert sort_blocks == -(-b // rows) * nt and cross_blocks == b * pairs
+    cross = [(ti, t + 1) for ti, t in map(_tile_pair, range(pairs))]
+    assert cross == [(i, j) for j in range(1, nt) for i in range(j)]  # in order, each once
     for n in sorted({0, 1, 2, tile - 1, tile, tile + 1, width - 1, width}):
         if not 0 <= n <= width:
             continue
-        covered = 0
-        for ti, tj in tiles:
-            mi = min(max(n - ti * tile, 0), tile)  # the tile's i inside the row
-            mj = min(max(n - tj * tile, 0), tile)
-            covered += mi * (mi - 1) // 2 if ti == tj else mi * mj
+        m = [min(max(n - t * tile, 0), tile) for t in range(nt)]
+        covered = sum(v * (v - 1) // 2 for v in m) + sum(m[i] * m[j] for i, j in cross)
         assert covered == n * (n - 1) // 2, n
 
 
 @pytest.mark.parametrize("p", [0, 1, 2, 3, 5, 10**6, 2**40 + 12_345, 2**45 - 1])
 def test_mk_tile_pair_far_out(p):
-    """The float64 root lands on the exact pair as far as a row of 2^31
-    values at tiles of 256 reaches (p < 2^45)."""
+    """The float64 root lands on the exact pair beyond what a row of 2^31
+    values at tiles of 2,048 reaches (p < 2^39)."""
     ti, tj = _tile_pair(p)
     assert 0 <= ti <= tj and tj * (tj + 1) // 2 + ti == p
     assert tj == (math.isqrt(8 * p + 1) - 1) // 2
 
 
 def test_mk_launch_caps_the_grid():
-    tile, pairs, blocks = mk.mk_launch(2, 10_000_000)
-    assert tile == 256 and pairs == 39_063 * 39_064 // 2 and blocks == mk.MK_MAX_BLOCKS
+    tile, rows, sort_blocks, pairs, cross_blocks = mk.mk_launch(2, 10_000_000)
+    assert (tile, rows, sort_blocks) == (2048, 1, 2 * 4883)
+    assert pairs == 4883 * 4882 // 2 and cross_blocks == mk.MK_MAX_BLOCKS
+    assert mk.mk_launch(10**8, 32) == (32, 64, mk.MK_MAX_BLOCKS, 0, 0)
+    assert mk.mk_launch(5, 1) == (32, 64, 1, 0, 0)
+
+
+# -- the S kernel by its own steps ------------------------------------------------
+
+
+def _search(buf: np.ndarray, lo0: np.ndarray, n: np.ndarray, y: np.ndarray,
+            upper: bool, top: int) -> tuple[np.ndarray, int]:
+    """The kernel's searches, stepped together as its ``probe`` steps them:
+    the values of buf[lo0, lo0 + n) below y (at most y with ``upper``), built
+    bit by bit from ``top``, a power of two at least every n.  Returns the
+    counts and the steps of the searches over non-empty runs."""
+    assert np.all(n <= top)
+    lo = np.zeros_like(n)
+    step, steps = top, 0
+    while step > 0:
+        ok = lo + step <= n
+        v = buf[np.where(ok, lo0 + lo + step - 1, 0)]
+        lo = lo + np.where(ok & ((v <= y) if upper else (v < y)), step, 0)
+        steps += int((n > 0).sum())
+        step >>= 1
+    return lo, steps
+
+
+def _merge_tile(vals: np.ndarray, tile: int) -> tuple[np.ndarray, int, int]:
+    """Pass 1 on one tile's m valid values: log2(tile) merge levels, a left
+    value x placed at a + lower_bound(right, x), a right value y at b +
+    upper_bound(left, y), the count adding each right value's upper bound
+    and taking each left value's lower bound; then less the tile's tied
+    pairs, i - lower_bound(tile, y) for the value y at sorted place i.
+    Asserts that each level's placement is a permutation.  Returns (sorted
+    values, S inside the tile, steps)."""
+    m = len(vals)
+    buf, s, steps = vals.copy(), 0, 0
+    i = np.arange(m)
+    r = 1
+    while r < tile:
+        a = i & ~(2 * r - 1)
+        mid, end = np.minimum(a + r, m), np.minimum(a + 2 * r, m)
+        left, right = i < mid, i >= mid
+        assert np.array_equal(right, (i & r) != 0)  # the kernel's test
+        to = np.empty(m, np.int64)
+        lb, st0 = _search(buf, mid[left], (end - mid)[left], buf[left], False, r)
+        to[left] = i[left] + lb
+        ub, st1 = _search(buf, a[right], (mid - a)[right], buf[right], True, r)
+        s += int(ub.sum()) - int(lb.sum())
+        to[right] = a[right] + (i[right] - mid[right]) + ub
+        assert np.array_equal(np.sort(to), i), f"level {r}: not a permutation"
+        buf = buf[np.argsort(to)]  # dst[to] = src
+        steps += st0 + st1
+        r *= 2
+    assert np.all(buf[:-1] <= buf[1:])
+    lb, st = _search(buf, np.zeros_like(i), np.full_like(i, m), buf, False, tile)
+    return buf, s - int((i - lb).sum()), steps + st
+
+
+def _kernel_s(pos: np.ndarray, lengths: np.ndarray, tile: int) -> tuple[list[int], int]:
+    """S of each row by the kernel's two passes at tiles of ``tile`` values,
+    reading only the values before each length: the tiles merged (pass 1),
+    then each value of a later sorted tile tj searching each earlier full
+    tile ti (pass 2).  Returns (S of each row, steps of all searches)."""
+    out, steps = [], 0
+    for row, n in enumerate(lengths):
+        tiles, s = [], 0
+        for start in range(0, int(n), tile):
+            srt, c, st = _merge_tile(pos[row, start:min(start + tile, n)], tile)
+            tiles.append(srt)
+            s, steps = s + c, steps + st
+        for tj in range(1, len(tiles)):
+            y = tiles[tj]
+            for ti in range(tj):
+                assert len(tiles[ti]) == tile  # the earlier tile is full
+                lo0, full = np.zeros_like(y), np.full_like(y, tile)
+                lb, st0 = _search(tiles[ti], lo0, full, y, False, tile)
+                ub, st1 = _search(tiles[ti], lo0, full, y, True, tile)
+                s, steps = s + int((lb + ub - tile).sum()), steps + st0 + st1
+        out.append(s)
+    return out, steps
+
+
+def _kernel_rows(case: str, tile: int) -> tuple[np.ndarray, np.ndarray]:
+    """Seeded rows for the kernel's steps; padding is garbage."""
+    rng = np.random.default_rng(sum(map(ord, case)) + tile)
+    width = {"short": 8, "T-1": tile - 1, "T": tile, "T+1": tile + 1}.get(case, 2 * tile + 1)
+    b = 6
+    pos = rng.integers(-(2**30), 2**30, size=(b, width))
+    lengths = rng.integers(0, width + 1, size=b)
+    lengths[:3] = [width, width - 1, min(tile + 1, width)]
+    if case == "short":
+        lengths[:] = [0, 1, 2, 2, 1, 0]
+        pos[2:4, :2] = [[3, 9], [9, 3]]
+    elif case == "ties":
+        pos = rng.integers(0, 4, size=(b, width))
+    elif case == "all_equal":
+        pos[:] = 7
+        lengths[3:] = [0, 1, 2]
+    elif case == "huge":  # values at +-2^62, the padding any int64
+        pos = rng.choice([-(2**62), -(2**62) + 1, 0, 2**62 - 1, 2**62], size=(b, width))
+        for row, n in enumerate(lengths):
+            pos[row, n:] = rng.integers(-(2**63), 2**63 - 1, size=width - n)
+    return pos.astype(np.int64), lengths.astype(np.int64)
+
+
+@pytest.mark.parametrize("tile", [8, 2048])
+@pytest.mark.parametrize("case", ["short", "ties", "all_equal", "T-1", "T", "T+1", "2T+1",
+                                  "huge"])
+def test_mk_s_by_the_kernels_steps(case, tile):
+    """The kernel's two passes, emulated at a small tile and at its own,
+    equal the plain version and (where int32 holds the values) the JAX op;
+    lengths 0 and 1 give 0, all-equal rows 0."""
+    pos, lengths = _kernel_rows(case, tile)
+    got, steps = _kernel_s(pos, lengths, tile)
+    assert got == mk.mk_s_batch_ref(torch.from_numpy(pos), torch.from_numpy(lengths)).tolist()
+    if case != "huge":
+        want = jax_mk.mk_s_batch(jnp.asarray(pos.astype(np.int32)),
+                                 jnp.asarray(lengths.astype(np.int32)))
+        assert got == np.asarray(want).tolist()
+    assert [s for s, n in zip(got, lengths) if n < 2] == [0] * int((lengths < 2).sum())
+    if case == "all_equal":
+        assert got == [0] * len(got)
+    if tile == mk.mk_tile(pos.shape[1]):
+        assert steps == mk.mk_steps(lengths, pos.shape[1])
+
+
+def test_mk_s_by_the_kernels_steps_decreasing():
+    """A strictly decreasing row whose |S| passes 2^31, at the kernel's tile
+    (33 tiles, 528 tile pairs): S = -n (n - 1) / 2, as the plain version
+    gives (the JAX op's int32 S cannot hold it)."""
+    n = 66_000
+    pos = np.arange(n, 0, -1, dtype=np.int64)[None] * 3
+    got, steps = _kernel_s(pos, np.array([n]), mk.MK_TILE)
+    assert got == [-(n * (n - 1) // 2)] and got[0] < -(2**31)
+    assert got == mk.mk_s_batch_ref(torch.from_numpy(pos), torch.tensor([n])).tolist()
+    assert steps == mk.mk_steps(np.array([n]), n)
+
+
+@pytest.mark.parametrize("width", [8, 33, 100, 700, 2049, 5000])
+def test_mk_steps_match_the_emulation(width):
+    """``mk_steps``, the search steps the chip smoke's bound counts, equals
+    the steps of the kernel's passes at its own tile, whose S equals the
+    plain version's."""
+    rng = np.random.default_rng(width)
+    pos = rng.integers(0, 50, size=(5, width)).astype(np.int64)
+    lengths = rng.integers(0, width + 1, size=5).astype(np.int64)
+    lengths[0] = width
+    got, steps = _kernel_s(pos, lengths, mk.mk_tile(width))
+    assert got == mk.mk_s_batch_ref(torch.from_numpy(pos), torch.from_numpy(lengths)).tolist()
+    assert steps == mk.mk_steps(lengths, width)
+
+
+@pytest.mark.parametrize("positions,lengths,what", [
+    (np.zeros((2, 8), np.int32), np.array([8, 8]), "int64 positions"),
+    (np.zeros(8, np.int64), np.array([8]), "int64 positions"),
+    (np.zeros((2, 8), np.int64), np.array([8, 8], np.int32), "int64 lengths"),
+    (np.zeros((2, 8), np.int64), np.array([8, 8, 8]), "int64 lengths"),
+    (np.zeros((2, 8), np.int64), np.array([8, 9]), "lengths in"),
+    (np.zeros((2, 8), np.int64), np.array([-1, 3]), "lengths in"),
+])
+def test_mk_s_batch_host_refuses(positions, lengths, what):
+    """The host-checked route refuses what the public op refuses."""
+    with pytest.raises(ValueError, match=what):
+        mk.mk_s_batch_host(torch.from_numpy(positions), lengths)
+
+
+def test_mk_s_route_reads_no_lengths_back(monkeypatch):
+    """``_mk_s`` checks its lengths in numpy: with ``torch.aminmax`` gone it
+    still gives the public op's S, and the public op still checks on the
+    tensors' device."""
+    runs = [r for r in _runs(13) if len(r) > 1]
+    want = [int(mk.mk_s_batch(torch.tensor([r]), torch.tensor([len(r)]))[0]) for r in runs]
+
+    def gone(*_a, **_k):
+        raise AssertionError("torch.aminmax called")
+
+    monkeypatch.setattr(torch, "aminmax", gone)
+    assert orientation._mk_s(runs, torch.device("cpu")) == want
+    pos, lengths = _edge_rows("short")
+    with pytest.raises(AssertionError, match="aminmax"):
+        mk.mk_s_batch(torch.from_numpy(pos), torch.from_numpy(lengths))
