@@ -104,6 +104,13 @@ F. dist     run inside phase 8's work directory: `assemble backend=cuda
             cuda:0, bytes sent by exchange, the verdict's time on the card);
             the hash-bucket verdict over the three assemblies' streams
             bit-equal to the replicated one on the card
+G. bench    `python -m ntjoin_tpu_torch.bench --quick` in a process of its
+            own: the parity gate, the fused cell at w=1000, the 30 Mbp
+            cell once on each backend with every artifact byte-equal, the
+            device idle share of that assemble and the scaling proxy at 4
+            Mbp; its detail and headline lines forwarded; it fails on a
+            non-zero exit, a missing headline key, no artifact compared or
+            an idle share outside [0, 1]
 
 The last three lines are the kernels' JSON record (with the general path's
 launches and times from phase A's run where a kernel runs on it, and the
@@ -125,7 +132,7 @@ import time
 import numpy as np
 import torch
 
-from ntjoin_tpu_torch import kernel_prof, split_bench
+from ntjoin_tpu_torch import bench, kernel_prof, split_bench
 from ntjoin_tpu_torch.core import orientation
 from ntjoin_tpu_torch.core.assembly import AssemblySketch, SharedIndex
 from ntjoin_tpu_torch.dryrun import dryrun_multichip
@@ -1289,6 +1296,40 @@ def distributed_phase(work: str, args: list[str]) -> dict[str, int]:
     return {k: v for k, v in launches.items() if v}
 
 
+# -- phase G: the port's bench ------------------------------------------------------
+
+
+def bench_phase() -> None:
+    """Phase G: ``python -m ntjoin_tpu_torch.bench --quick``; its detail and
+    headline lines forwarded and checked."""
+    t0 = time.monotonic()
+    res = subprocess.run([sys.executable, "-m", "ntjoin_tpu_torch.bench", "--quick"], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        fail(f"bench --quick exited {res.returncode}:\n{res.stderr[-4000:]}")
+    lines = res.stdout.strip().splitlines()
+    if len(lines) < 2:
+        fail(f"bench --quick printed no detail and headline:\n{res.stdout[-2000:]}")
+    say("   " + lines[-2])
+    say("   " + lines[-1])
+    detail, headline = json.loads(lines[-2])["detail"], json.loads(lines[-1])
+    missing = [key for key in bench.HEADLINE_KEYS if key not in headline]
+    if missing:
+        fail(f"the bench's headline lacks {missing}")
+    if detail["e2e_30mbp"]["artifacts_equal"] < 1:
+        fail("the bench compared no artifact of its 30 Mbp cell")
+    idle = detail["idle_30mbp"]
+    for key in ("idle_share_of_wall", "idle_share_of_span"):
+        if not 0 <= idle[key] <= 1:
+            fail(f"the bench's {key} {idle[key]} is outside [0, 1]")
+    say(f"== bench: --quick in {time.monotonic() - t0:.1f} s; {headline['value']} Gbp/s "
+        f"({headline['vs_baseline']}x the native sketcher), 30 Mbp assemble "
+        f"{detail['e2e_30mbp']['cuda']['min']:.3f} s on the card against "
+        f"{detail['e2e_30mbp']['native_host']['min']:.3f} s, idle share "
+        f"{idle['idle_share_of_wall']:.4f} of its wall")
+
+
 # -- phase B: Mann-Kendall ------------------------------------------------------------
 
 
@@ -1683,6 +1724,7 @@ def main() -> int:
     counts["mk_s"] = draft["mk_s"]  # the mkt=True run is the S kernel's main path
     bound_records()
     mesh_launches = mesh_phase(smi)
+    bench_phase()
 
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "ntjoin_tpu"

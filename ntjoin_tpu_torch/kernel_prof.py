@@ -7,7 +7,8 @@ Stages (default: all, in this order):
 
 * ``link``: pinned int8 codes to the device, a results-sized copy back
   (4 x 300,000 int32) and a one-element round trip.
-* ``fused``: ``sketch_fused_torch`` on KP_SIZE bases, k=32, w=1000.
+* ``fused``: ``sketch_fused_torch`` on KP_SIZE bases, k=32, w=1000 (KP_W):
+  three trials of CUDA events (``ms_trials``, sorted; ``ms`` the least).
 * ``events``: the copy kernel, the sketch through the hash, through the
   window/emission kernel and whole, and the exact window kernel over every
   chunk (the counterpart of the original's ``slope`` stage).
@@ -28,7 +29,8 @@ prints ``{stage: {"skipped": ...}}``.  The run ends with ``{"counts": ...}``,
 the kernel launches of the whole run, and ``{"done": true}``.  Times in
 ``*_ms`` are CUDA events over back-to-back calls after a warm-up; ``per_call``
 and ``wall`` times are host clocks around synchronised calls.  KP_SIZE sets
-the bases (default 2^27).  Without a CUDA device the run prints no stage
+the bases (default 2^27), KP_W the window of every stage but the copy
+array's rows (default 1000).  Without a CUDA device the run prints no stage
 and exits 2.
 """
 from __future__ import annotations
@@ -94,11 +96,11 @@ def copy_rows(size: int) -> int:
     return -(-rows // 128) * 128
 
 
-def _stream(codes: np.ndarray) -> tuple[torch.Tensor, int, int]:
+def _stream(codes: np.ndarray, w: int = W) -> tuple[torch.Tensor, int, int]:
     """Codes padded with invalid bases to the layout's length, on the GPU;
     and the layout (C, L)."""
-    C, L = sc.layout(codes.shape[0], K, W)
-    buf = np.full(C * L + W + K - 2, CODE_INVALID, dtype=np.int8)
+    C, L = sc.layout(codes.shape[0], K, w)
+    buf = np.full(C * L + w + K - 2, CODE_INVALID, dtype=np.int8)
     buf[: codes.shape[0]] = codes
     return torch.from_numpy(buf).to(DEVICE), C, L
 
@@ -143,14 +145,15 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     deadline = time.monotonic() + float(os.environ.get("KP_BUDGET_S", 3000))
     size = int(os.environ.get("KP_SIZE", 1 << 27))
+    w = int(os.environ.get("KP_W", W))
     sc.reset_counts()
-    emit("device", {"name": torch.cuda.get_device_name(0), "size": size, "k": K, "w": W})
+    emit("device", {"name": torch.cuda.get_device_name(0), "size": size, "k": K, "w": w})
     codes = np.random.default_rng(42).integers(0, 4, size=size, dtype=np.int8)
-    flat, C, L = _stream(codes)
-    rows, off, cap = L + W + K - 2, K - 1, sc._slot_cap(L, W)
+    flat, C, L = _stream(codes, w)
+    rows, off, cap = L + w + K - 2, K - 1, sc._slot_cap(L, w)
 
     def fused(stop_after=None):
-        return sc.sketch_fused_torch(flat, size, K, W, stop_after=stop_after)
+        return sc.sketch_fused_torch(flat, size, K, w, stop_after=stop_after)
 
     def words() -> torch.Tensor:
         n = copy_rows(size) * 2048
@@ -164,16 +167,17 @@ def main(argv: list[str] | None = None) -> int:
             emit(stage, stage_link(flat))
         elif stage == "fused":
             n_emit = int(fused()[0].shape[0])
-            ms = events_ms(fused)
-            emit(stage, {"emissions": n_emit, "per_call_ms": per_call_ms(fused), "ms": ms,
-                         "gbases_s": size / ms / 1e6, "chunks": C, "chunk_len": L})
+            trials = sorted(events_ms(fused) for _ in range(3))
+            emit(stage, {"emissions": n_emit, "per_call_ms": per_call_ms(fused),
+                         "ms": trials[0], "ms_trials": trials,
+                         "gbases_s": size / trials[0] / 1e6, "chunks": C, "chunk_len": L})
         elif stage == "events":
             big = words()
             nbytes = big.numel() * 4
             copy_ms = events_ms(lambda: copy_words(big), 10)
             del big
             h, _ = fused("hash")
-            scan_ms = events_ms(lambda: sc.window_argmin(h, L, W, off))
+            scan_ms = events_ms(lambda: sc.window_argmin(h, L, w, off))
             del h
             full_ms = events_ms(fused)
             emit(stage, {
@@ -203,7 +207,7 @@ def main(argv: list[str] | None = None) -> int:
             runs0 = sc.COUNTS["exact_runs"]
             t_full = events_ms(fused)
             val = fused("hash")[1]
-            t_flags = events_ms(lambda: sc.window_flags(val, L, W, off))
+            t_flags = events_ms(lambda: sc.window_flags(val, L, w, off))
             del val
             out = {**marginals(t_hash, t_flags, t_win, t_full),
                    "exact_ran": sc.COUNTS["exact_runs"] > runs0}
@@ -211,20 +215,20 @@ def main(argv: list[str] | None = None) -> int:
                 h, _ = fused("hash")
                 over = torch.nonzero(fused("window")[2] > cap).flatten()
                 out["exact_chunks"] = int(over.numel())
-                out["exact_ms"] = events_ms(lambda: sc.window_argmin(h, L, W, off, over))
+                out["exact_ms"] = events_ms(lambda: sc.window_argmin(h, L, w, off, over))
                 del h
             emit(stage, out)
         elif stage == "decomp":
             out = {}
             h, val = sc.hash_chunked(flat, L, C, rows, K)
             out["hash_ms"] = events_ms(lambda: sc.hash_chunked(flat, L, C, rows, K))
-            flags = sc.window_flags(val, L, W, off)
-            out["flags_ms"] = events_ms(lambda: sc.window_flags(val, L, W, off))
+            flags = sc.window_flags(val, L, w, off)
+            out["flags_ms"] = events_ms(lambda: sc.window_flags(val, L, w, off))
             del val
-            out["window_emit_ms"] = events_ms(lambda: sc.window_emit(h, flags, L, W, off, cap))
+            out["window_emit_ms"] = events_ms(lambda: sc.window_emit(h, flags, L, w, off, cap))
 
             def window_compact():
-                spos, shsh, count = sc.window_emit(h, flags, L, W, off, cap)
+                spos, shsh, count = sc.window_emit(h, flags, L, w, off, cap)
                 count = count.masked_fill(count > cap, 0)
                 return sc._compact_lists(spos, shsh, count, int(count.sum()))
 
@@ -233,16 +237,16 @@ def main(argv: list[str] | None = None) -> int:
             rep = codes.copy()
             for s0 in range(0, size, size // 64):
                 rep[s0 : s0 + 4000] = 1  # poly-C blocks
-            flat_r, _, _ = _stream(rep)
+            flat_r, _, _ = _stream(rep, w)
             h, val = sc.hash_chunked(flat_r, L, C, rows, K)
-            flags = sc.window_flags(val, L, W, off)
+            flags = sc.window_flags(val, L, w, off)
             del val
             out["repeatdense_window_emit_ms"] = events_ms(
-                lambda: sc.window_emit(h, flags, L, W, off, cap))
-            over = torch.nonzero(sc.window_emit(h, flags, L, W, off, cap)[2] > cap).flatten()
+                lambda: sc.window_emit(h, flags, L, w, off, cap))
+            over = torch.nonzero(sc.window_emit(h, flags, L, w, off, cap)[2] > cap).flatten()
             out["repeatdense_exact_chunks"] = int(over.numel())
             out["repeatdense_exact_ms"] = events_ms(
-                lambda: sc.window_argmin(h, L, W, off, over))
+                lambda: sc.window_argmin(h, L, w, off, over))
             del h, flags, flat_r
             emit(stage, out)
         else:  # multi, general
@@ -253,12 +257,12 @@ def main(argv: list[str] | None = None) -> int:
                 for s0 in rng.integers(0, size - 600, 100):
                     recs_codes[s0 : s0 + 500] = CODE_INVALID
             recs = [recs_codes[i : i + 2_000_000] for i in range(0, size, 2_000_000)]
-            sr.sketch_records_torch(recs, K, W, DEVICE)  # warm
+            sr.sketch_records_torch(recs, K, w, DEVICE)  # warm
             walls, splits = [], []
             for _ in range(3):
                 sr.STAGES.clear()
                 t0 = time.monotonic()
-                sr.sketch_records_torch(recs, K, W, DEVICE)
+                sr.sketch_records_torch(recs, K, w, DEVICE)
                 walls.append(time.monotonic() - t0)
                 splits.append(dict(sr.STAGES))
             best = int(np.argmin(walls))

@@ -273,6 +273,29 @@ def mk_runs(seed: int = 71) -> list[list[int]]:
     return runs
 
 
+def device_spans(prof, cats: tuple[str, ...] = ("kernel",)) -> list[tuple]:
+    """(start, end, grid, name, category) of each device event of these
+    categories in a torch.profiler run (chrome-trace microseconds), sorted
+    by start; ``gpu_memcpy`` and ``gpu_memset`` are the copies' and fills'."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path, encoding="utf-8") as fh:
+            events = json.load(fh)["traceEvents"]
+    return sorted((e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("grid", [0, 1, 1]),
+                   e["name"], e["cat"]) for e in events if e.get("cat") in cats)
+
+
+def busy_us(spans: list[tuple]) -> float:
+    """The length of the union of the intervals [start, end) of ``spans``,
+    sorted by start: the time in which at least one of them ran."""
+    busy, end = 0.0, spans[0][0] if spans else 0.0
+    for lo, hi, *_ in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return busy
+
+
 def _trace(fn, queued: bool) -> dict:
     """One call of fn under torch.profiler (behind a spinning kernel where
     ``queued``): its kernels' count (the op's own fills included), their
@@ -289,21 +312,12 @@ def _trace(fn, queued: bool) -> dict:
             torch.cuda._sleep(20_000_000)
         fn()
         torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path, encoding="utf-8") as fh:
-            events = json.load(fh)["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("grid", [0, 1, 1]))
-                   for e in events if e.get("cat") == "kernel" and "spin_kernel" not in e["name"])
+    spans = [s for s in device_spans(prof) if "spin_kernel" not in s[3]]
     if not spans:
         return {"kernels": 0, "device_ms": "not measured (no kernel in the trace)"}
-    busy, end = 0.0, spans[0][0]
-    for lo, hi, _ in spans:
-        busy += max(0.0, hi - max(lo, end))
-        end = max(end, hi)
-    device = sum(hi - lo for lo, hi, _ in spans)
-    sms = sum((hi - lo) * min(132, g[0] * g[1] * g[2]) for lo, hi, g in spans) / device
+    busy = busy_us(spans)
+    device = sum(hi - lo for lo, hi, *_ in spans)
+    sms = sum((hi - lo) * min(132, g[0] * g[1] * g[2]) for lo, hi, g, *_ in spans) / device
     span = spans[-1][1] - spans[0][0]
     return {"kernels": len(spans), "device_ms": device / 1e3, "span_ms": span / 1e3,
             "idle_share": 1 - busy / span, "sms": sms}

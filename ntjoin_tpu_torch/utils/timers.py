@@ -12,6 +12,28 @@ import resource
 import time
 
 
+def status_kb(field: str) -> int | None:
+    """A ``kB`` field of ``/proc/self/status`` (``VmRSS``, ``VmHWM``), or
+    None where the system has no such line."""
+    try:
+        with open("/proc/self/status", encoding="ascii") as fh:
+            for line in fh:
+                if line.startswith(field + ":"):
+                    return int(line.split()[1])
+    except OSError:
+        pass
+    return None
+
+
+def peak_rss_kb() -> int:
+    """This process's peak resident set in kB: ``VmHWM`` where the system
+    gives it, else ``ru_maxrss``.  On Linux ``ru_maxrss`` keeps the
+    high-water mark across ``execve``, so in a process spawned by a larger
+    one it reads at least that process's peak at the spawn."""
+    hwm = status_kb("VmHWM")
+    return hwm if hwm is not None else resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+
+
 class StageTimers:
     def __init__(self, enabled: bool = False, prefix: str = "out"):
         self.enabled = enabled
@@ -25,7 +47,7 @@ class StageTimers:
             yield
         finally:
             wall = time.monotonic() - t0
-            rss_kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+            rss_kb = peak_rss_kb()
             self.stages.append((name, wall, rss_kb))
             if self.enabled:
                 safe = name.replace("/", "_").replace(":", ".")
