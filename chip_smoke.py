@@ -53,7 +53,13 @@ with a non-zero exit and no result line:
             `backend=native index_backend=host` (the port's C++ sketcher and
             NumPy graph layers, which share no kernel and no torch op with
             the path under test): every artifact byte-equal, every graph op
-            counted on the GPU
+            counted on the GPU; each run's stages with their resident set
+            at start and end and the highest read while open (the `.time`
+            files); the card run's `codes_held_max`, which may not exceed
+            one batch's buffer, and its sketch stages after the first, each
+            of which may grow its resident set by no more than the reader's
+            byte a base, the larger of twice the longest record and the
+            codes held, and half a byte a base
 A. general  100 Mbp as 20 seeded draft scaffolds of 5 Mbp (the genome of
             phase 8 with an N run of 50-500 bp every 2-8 kbp), through the
             general path (ops/sketch_general.py) at w=1000 and 5000 against
@@ -84,7 +90,9 @@ B. mk       the Mann-Kendall S (ops/mannkendall.py) of 4,096 runs of 2-2,048
 C. draft    phase 8 again with an N-dense draft target (~5 Mbp scaffolds, a
             gap every 2-8 kbp, misjoined blocks) and mkt=True: 13 artifacts
             byte-equal, the target on the general path, the op on the card;
-            its launches of the S kernel are that kernel's main path
+            its launches of the S kernel are that kernel's main path; the
+            stages' resident set, `codes_held_max` and the sketch stages'
+            growth as in phase 8
 D. bound    one record as long as record_bound allows on this card for each
             path (N-free: fused; an N run of 1-20 bp every 2-8 kbp: general)
             against the host sketcher, its peak device memory within the
@@ -1614,6 +1622,62 @@ def _stages(out: str) -> list[str]:
     return [ln for ln in lines[i + 1 :] if ln.count("\t") == 2 and "_counts\t" not in ln]
 
 
+def _stage_rss(work: str, prefix: str, out: str) -> dict[str, dict[str, int]]:
+    """Each stage the run printed in ``out``, in its order: the resident
+    set (kB) at its start and end and the highest read while it was open,
+    from its `.time` file in ``work``; printed in GB."""
+    rss = {}
+    for name in (ln.split("\t")[0] for ln in _stages(out)):
+        safe = name.replace("/", "_").replace(":", ".")
+        with open(os.path.join(work, f"{prefix}.{safe}.time"), encoding="utf-8") as fh:
+            kv = dict(ln.split("\t") for ln in fh.read().splitlines())
+        rss[name] = {key: int(kv[key]) for key in ("rss_start_kb", "rss_end_kb", "rss_max_kb")}
+        say(f"     {name}: rss_start {rss[name]['rss_start_kb'] / 1e6:.3f} GB, rss_end "
+            f"{rss[name]['rss_end_kb'] / 1e6:.3f} GB, peak {rss[name]['rss_max_kb'] / 1e6:.3f} GB")
+    if not rss:
+        fail(f"the run in {work} printed no stage")
+    return rss
+
+
+def _fai(work: str, fa: str) -> list[int]:
+    """The record lengths of ``fa`` in ``work``, from its .fai file."""
+    with open(os.path.join(work, fa + ".fai"), encoding="utf-8") as fh:
+        return [int(ln.split("\t")[1]) for ln in fh]
+
+
+def _check_held(work: str, held: int) -> None:
+    """``codes_held_max`` of the card run: no more than one batch's buffer
+    for its largest assembly (its records and separators, as
+    sketch_records.stream_len pads them: below t + C + w + k) or the
+    probe's block; no record took the host."""
+    t = min(sr.BATCH_BASES, max(sum(n + K - 1 for n in _fai(work, fa))
+                                for fa in ("ref1.fa", "ref2.fa", "target.fa")))
+    most = max(t + sc.layout(t, K, W)[0] + W + K, native.PROBE_BASES)
+    say(f"   card run's codes_held_max {held} bytes (bound {most}: one batch's buffer)")
+    if not 0 < held <= most:
+        fail(f"the card run held {held} bytes of codes at once, bound {most}")
+
+
+def _check_sketch_rss(work: str, rss: dict, held: int) -> None:
+    """Each sketch stage of the card run after the first (which also makes
+    the CUDA context and loads the kernels) grows its resident set by no
+    more than what streaming holds: the reader's byte a base, the larger of
+    the reader's growing copy of its longest record (up to twice that
+    record) and the codes held (``codes_held_max``), and half a byte a base
+    for the rest (sketches, TSV text, the allocator).  An assembly's codes
+    or ``str``s held whole would add a byte a base."""
+    for name in [s for s in rss if s.startswith("sketch:")][1:]:
+        lens = _fai(work, name.split(":", 1)[1])
+        bases = sum(lens)
+        most = bases + max(2 * max(lens), held) + bases // 2
+        grew = (rss[name]["rss_max_kb"] - rss[name]["rss_start_kb"]) * 1024
+        say(f"   {name} grew {grew} bytes, {grew / bases:.3f} a base (bound {most}, "
+            f"{most / bases:.3f} a base)")
+        if grew > most:
+            fail(f"{name} grew its resident set by {grew} bytes for {bases} bases, bound {most}: "
+                 "the sketch stage holds more than one batch of the assembly")
+
+
 def _counts_line(out: str, key: str) -> dict:
     line = next((ln for ln in out.splitlines() if ln.startswith(key + "\t")), None)
     if line is None:
@@ -1671,10 +1735,14 @@ def e2e(sizes: list[int], target, words: tuple[str, ...] = (),
         say(f"   card (backend=cuda) wall {p_wall:.3f} s; stages:")
         for ln in _stages(p_out):
             say("     " + ln)
+        p_rss = _stage_rss(port, "e2e", p_out)
         say(f"   host (backend={host}, index_backend=host) wall {r_wall:.3f} s; stages:")
         for ln in _stages(r_out):
             say("     " + ln)
+        _stage_rss(ref, "e2e", r_out)
         counts = _counts_line(p_out, "sketch_counts")
+        _check_held(port, counts["codes_held_max"])
+        _check_sketch_rss(port, p_rss, counts["codes_held_max"])
         index = _counts_line(p_out, "index_counts")
         say(f"   card run's counts: {json.dumps(counts)}")
         say(f"   card run's index counts: {json.dumps(index)}")

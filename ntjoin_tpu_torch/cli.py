@@ -32,7 +32,6 @@ process of the multi-process pipeline (``parallel/pipeline.py``, gloo).
 """
 from __future__ import annotations
 
-import functools
 import json
 import os
 import shutil
@@ -48,7 +47,7 @@ from ntjoin_tpu_torch.core.config import ScaffoldConfig
 from ntjoin_tpu_torch.core.scaffolder import Scaffolder
 from ntjoin_tpu_torch.emit.writers import write_minimizer_tsv
 from ntjoin_tpu_torch.io import native
-from ntjoin_tpu_torch.io.fasta import read_fasta, write_fai
+from ntjoin_tpu_torch.io.fasta import write_fai
 from ntjoin_tpu_torch.ops import device_index, mannkendall, sketch_cuda, sketch_records
 from ntjoin_tpu_torch.ops.nthash_np import sketch_codes, sketch_seq
 from ntjoin_tpu_torch.parallel.distributed import shard_device
@@ -162,26 +161,38 @@ def _mesh(v: dict[str, str]) -> list[str] | None:
 
 
 def _sketcher(backend: str, device: str):
-    """(records' codes, k, w) -> list of Sketch for one assembly; the cuda
-    backend sketches on ``device``, a card."""
+    """(records' source, k, w) -> list of Sketch for one assembly; the cuda
+    backend sketches on ``device``, a card.  The cuda and torch backends
+    take the source whole (``sketch_records_torch`` encodes each record into
+    its batch buffer); the host sketchers take one record's codes at a time
+    and drop them, as ``ntjoin_tpu/cli.py:297-301`` does."""
     if backend in ("auto", "cuda"):
-        return lambda codes, k, w: sketch_records.sketch_records_torch(codes, k, w, device)
+        return lambda src, k, w: sketch_records.sketch_records_torch(src, k, w, device)
     if backend == "torch":
-        return lambda codes, k, w: sketch_records.sketch_records_torch(
-            codes, k, w, device, plain=True)
+        return lambda src, k, w: sketch_records.sketch_records_torch(
+            src, k, w, device, plain=True)
     if backend == "native":
         if not native.available():
             raise RuntimeError("native library unavailable (no g++ to build it)")
         one = native.sketch_codes_native
     else:
         one = sketch_codes
-    return lambda codes, k, w: [one(c, k, w) for c in codes]
+    return lambda src, k, w: [one(src.codes(i), k, w) for i in range(len(src))]
+
+
+def _sharded(mesh: list[str]):
+    """The mesh's sketcher: each record's codes from a generator that keeps
+    none of them, as ``ntjoin_tpu/cli.py:283-289`` feeds its mesh."""
+    return lambda src, k, w: sketch_records_sharded(
+        (src.codes(i) for i in range(len(src))), k, w, mesh)
 
 
 def _ensure_sketch(fasta: str, k: int, w: int, force: bool, sketch,
                    timers: StageTimers) -> tuple[str, AssemblySketch | None]:
     """Write (or reuse, Make-style) the minimizer TSV and .fai of one
-    assembly, as ``ntjoin_tpu.cli._ensure_sketch`` does."""
+    assembly, as ``ntjoin_tpu.cli._ensure_sketch`` does: the records come
+    from one ``FastaSource``, and each k-mer's text in the TSV from the
+    reader's bytes of its record."""
     tsv = f"{fasta}.k{k}.w{w}.tsv"
     fresh = (
         not force
@@ -194,16 +205,15 @@ def _ensure_sketch(fasta: str, k: int, w: int, force: bool, sketch,
     if fresh:
         return tsv, None
     with timers.stage(f"sketch:{os.path.basename(fasta)}"):
-        records = read_fasta(fasta)
-        sketches = sketch([r.codes for r in records], k, w)
-        for r in records:
-            r._codes = None
-        write_minimizer_tsv(tsv, records, sketches, k)
+        with native.FastaSource(fasta) as src:
+            sketches = sketch(src, k, w)
+            write_minimizer_tsv(tsv, src, sketches, k)
+            names = src.names
     hs = [np.asarray(sk.hashes, dtype=np.uint64) for sk in sketches]
     ps = [np.asarray(sk.positions, dtype=np.int64) for sk in sketches]
     cs = [np.full(len(sk.positions), i, dtype=np.int32) for i, sk in enumerate(sketches)]
     return tsv, AssemblySketch.from_stream(
-        tsv, 1.0, [r.id for r in records],
+        tsv, 1.0, names,
         np.concatenate(hs) if hs else np.empty(0, np.uint64),
         np.concatenate(ps) if ps else np.empty(0, np.int64),
         np.concatenate(cs) if cs else np.empty(0, np.int32),
@@ -258,10 +268,7 @@ def assemble(words: list[str]) -> int:
         return _distributed(v, k, w, n, prefix, index_device, scaffold_opts)
     timers = StageTimers(enabled=_truthy(v["time"]), prefix=prefix)
     mesh = _mesh(v)
-    if mesh:
-        sketch = functools.partial(sketch_records_sharded, mesh=mesh)
-    else:
-        sketch = _sketcher(v["backend"], index_device)
+    sketch = _sharded(mesh) if mesh else _sketcher(v["backend"], index_device)
     cache: dict[str, AssemblySketch] = {}
     tsvs = []
     for fa in v["references"].split() + [v["target"]]:

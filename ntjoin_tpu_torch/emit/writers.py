@@ -228,18 +228,24 @@ def dot_colour_legend(assemblies) -> str:
 
 
 def write_minimizer_tsv(
-    out_path: str, records, sketches: list, k: int, with_seq: bool = True
+    out_path: str, source, sketches: list, k: int, with_seq: bool = True
 ) -> None:
-    """indexlr-format TSV: ``id\\thash:pos[:seq] ...`` one line per record."""
+    """indexlr-format TSV: ``id\thash:pos[:seq] ...`` one line per record of
+    ``source`` (an ``io.native.FastaSource``: ``names`` and ``view(i)``),
+    one record at a time.  Each k-mer's text is gathered from the record's
+    bytes in the reader (k bytes a minimizer), so no record's ``str`` is
+    made."""
     with atomic_write(out_path) as out:
-        for rec, sk in zip(records, sketches):
-            toks = []
-            for h, p in zip(sk.hashes.tolist(), sk.positions.tolist()):
-                if with_seq:
-                    toks.append(f"{h}:{p}:{rec.seq[p:p + k]}")
-                else:
-                    toks.append(f"{h}:{p}")
-            out.write(f"{rec.id}\t{' '.join(toks)}\n")
+        for i, (name, sk) in enumerate(zip(source.names, sketches)):
+            pos = sk.positions.tolist()
+            if with_seq and pos:
+                kmers = np.lib.stride_tricks.sliding_window_view(source.view(i), k)[pos]
+                text = kmers.tobytes().decode("latin-1")
+                toks = [f"{h}:{p}:{text[j * k:(j + 1) * k]}"
+                        for j, (h, p) in enumerate(zip(sk.hashes.tolist(), pos))]
+            else:
+                toks = [f"{h}:{p}" for h, p in zip(sk.hashes.tolist(), pos)]
+            out.write(f"{name}\t{' '.join(toks)}\n")
 
 
 def write_bed(out_path: str, beds: list[Bed]) -> None:

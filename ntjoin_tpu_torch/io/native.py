@@ -2,7 +2,9 @@
 
 Optional acceleration: a C++ streaming FASTA parser and the sequential
 rolling-hash sketcher (the host-native indexlr equivalent).  Callers check
-:func:`available` and take the pure-python/NumPy paths where it is False.
+:func:`available` and take the pure-python/NumPy paths where it is False;
+:class:`FastaSource` hands out one assembly's records from the C++ reader,
+or from the Python reader where the library is not there.
 
 The port keeps its own build of the library: the source is read where it
 is, compiled with ``g++`` and the flags of ``native/Makefile`` into
@@ -205,3 +207,142 @@ def read_fasta_native(path: str):
         return out
     finally:
         lib.nj_fasta_close(h)
+
+
+# Bases a probe of a record's path encodes at a time (FastaSource.clean).
+PROBE_BASES = 1 << 20
+
+
+class FastaSource:
+    """The records of one FASTA file, read once and handed out one record
+    at a time; a context manager that closes the reader on exit.
+
+    Where the native library is available (and the file is not gzipped),
+    the C++ reader (``nj_fasta_open``) holds the file's bases, one byte a
+    base, and ``codes_into`` encodes a record from them (``nj_fasta_codes``)
+    into any buffer, the pinned batch buffer included: no Python ``str`` of
+    a record is made unless ``seq`` asks for it.  Elsewhere the same
+    interface sits over ``io/fasta.py``'s Python reader.  A file the native
+    reader cannot open raises: it never switches reader.
+
+    ``names`` (record ids), ``lengths`` (int64 bases a record) and
+    ``len()`` describe the records; ``view(i)`` is record i's bytes as a
+    uint8 array, a view of the reader's buffer valid until ``close``.
+    """
+
+    def __init__(self, path: str):
+        self.path = path
+        self._h = None
+        self._records = None
+        lib = None if path.endswith(".gz") else _load()
+        if lib is None:
+            from ntjoin_tpu_torch.io.fasta import read_fasta
+
+            self._records = read_fasta(path)
+            self.names = [r.id for r in self._records]
+            self.lengths = np.array([r.length for r in self._records], dtype=np.int64)
+            return
+        h = lib.nj_fasta_open(path.encode())
+        if not h:
+            raise FileNotFoundError(path)
+        self._lib, self._h = lib, h
+        count = lib.nj_fasta_count(h)
+        self.lengths = np.array([lib.nj_fasta_len(h, i) for i in range(count)], dtype=np.int64)
+        self.names = []
+        cap = 4096
+        buf = ctypes.create_string_buffer(cap)
+        for i in range(count):
+            need = lib.nj_fasta_name(h, i, buf, cap)
+            if need >= cap:  # metadata-stuffed header: grow and re-read
+                cap = int(need) + 1
+                buf = ctypes.create_string_buffer(cap)
+                lib.nj_fasta_name(h, i, buf, cap)
+            self.names.append(buf.value.decode())
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def __enter__(self) -> FastaSource:
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        """Free the reader's bytes and hand the freed heap back to the
+        system: the bytes of many short records lie below later
+        allocations, where ``free`` alone keeps them resident."""
+        if self._h is None and self._records is None:
+            return
+        if self._h is not None:
+            self._lib.nj_fasta_close(self._h)
+            self._h = None
+        self._records = None
+        trim = getattr(ctypes.CDLL(None), "malloc_trim", None)  # glibc only
+        if trim is not None:
+            trim(0)
+
+    def _ptr(self, i: int) -> int:
+        if self._h is None:
+            raise ValueError(f"{self.path}: the source is closed")
+        return self._lib.nj_fasta_seq_ptr(self._h, i)
+
+    def view(self, i: int) -> np.ndarray:
+        """Record i's bytes (uint8): a view of the reader's buffer, valid
+        until the source closes."""
+        if self._records is not None:
+            return np.frombuffer(self._records[i].seq.encode("latin-1"), dtype=np.uint8)
+        n = int(self.lengths[i])
+        return np.frombuffer((ctypes.c_char * n).from_address(self._ptr(i)), dtype=np.uint8)
+
+    def seq(self, i: int) -> str:
+        """Record i's text, made when asked."""
+        if self._records is not None:
+            return self._records[i].seq
+        return ctypes.string_at(self._ptr(i), int(self.lengths[i])).decode("latin-1")
+
+    def _encode(self, i: int, start: int, out: np.ndarray) -> None:
+        """Codes of record i's bases [start, start + out.size) into out."""
+        if self._records is not None:
+            from ntjoin_tpu_torch.ops.nthash_np import encode
+
+            out[:] = encode(self._records[i].seq[start : start + out.shape[0]])
+            return
+        self._lib.nj_encode(ctypes.c_char_p(self._ptr(i) + start), out.shape[0],
+                            out.ctypes.data)
+
+    def codes_into(self, i: int, out: np.ndarray) -> None:
+        """Record i's base codes (A=0 C=1 G=2 T=3, other=4) into ``out``, a
+        contiguous int8 or uint8 array of exactly its length (a slice of a
+        pinned buffer's ``numpy()`` view serves)."""
+        n = int(self.lengths[i])
+        if out.shape != (n,) or out.dtype.itemsize != 1 or not out.flags.c_contiguous:
+            raise ValueError(f"record {i} needs a contiguous 1-byte buffer of {n}, "
+                             f"got {out.dtype} {out.shape}")
+        if self._records is None:
+            self._ptr(i)  # refuse a closed source before the C++ call
+            self._lib.nj_fasta_codes(self._h, i, out.ctypes.data)
+        else:
+            self._encode(i, 0, out)
+
+    def codes(self, i: int) -> np.ndarray:
+        """Record i's base codes in an array of their own."""
+        out = np.empty(int(self.lengths[i]), dtype=np.uint8)
+        self.codes_into(i, out)
+        return out
+
+    def clean(self, i: int, scratch: np.ndarray | None = None) -> bool:
+        """Whether record i holds only A, C, G and T (either case), read
+        ``PROBE_BASES`` at a time (into ``scratch`` when given); it stops
+        at the first block with another letter."""
+        n = int(self.lengths[i])
+        if n == 0:
+            return True
+        if scratch is None:
+            scratch = np.empty(min(n, PROBE_BASES), dtype=np.uint8)
+        for a in range(0, n, scratch.shape[0]):
+            part = scratch[: min(scratch.shape[0], n - a)]
+            self._encode(i, a, part)
+            if part.max() >= 4:
+                return False
+        return True

@@ -5,8 +5,11 @@
 
 Stages (default: all, in this order):
 
-* ``link``: pinned int8 codes to the device, a results-sized copy back
-  (4 x 300,000 int32) and a one-element round trip.
+* ``link``: pinned int8 codes to the device, from torch's pinned memory
+  and from the sketch's own batch buffer (``sketch_records.host_buffer``,
+  pinned by ``cudaHostRegister``), with what making each took; a
+  results-sized copy back (4 x 300,000 int32) and a one-element round
+  trip.
 * ``fused``: ``sketch_fused_torch`` on KP_SIZE bases, k=32, w=1000 (KP_W):
   three trials of CUDA events (``ms_trials``, sorted; ``ms`` the least).
 * ``events``: the copy kernel, the sketch through the hash, through the
@@ -106,16 +109,27 @@ def _stream(codes: np.ndarray, w: int = W) -> tuple[torch.Tensor, int, int]:
 
 
 def stage_link(buf: torch.Tensor) -> dict:
+    t0 = time.perf_counter()
     host = buf.cpu().pin_memory()
+    pin_ms = (time.perf_counter() - t0) * 1e3
     dev = torch.empty_like(host, device=DEVICE)
     up = events_ms(lambda: dev.copy_(host, non_blocking=True))
+    # the sketch's batch buffer: page-aligned memory pinned by cudaHostRegister
+    t0 = time.perf_counter()
+    reg = sr.host_buffer(host.numel(), True)
+    register_ms = (time.perf_counter() - t0) * 1e3
+    reg.copy_(host)
+    up_reg = events_ms(lambda: dev.copy_(reg, non_blocking=True))
+    sr.unpin(reg)
     res = torch.zeros(4 * 300_000, dtype=torch.int32, device=DEVICE)
     down = per_call_ms(res.cpu)
     one = torch.ones(1, dtype=torch.int32, device=DEVICE)
     rtt = per_call_ms(one.item)
     return {
         "upload_bytes": host.numel(), "upload_ms": up,
-        "upload_gb_s": host.numel() / up / 1e6,
+        "upload_gb_s": host.numel() / up / 1e6, "pin_ms": pin_ms,
+        "upload_registered_ms": up_reg, "upload_registered_gb_s": host.numel() / up_reg / 1e6,
+        "register_ms": register_ms,
         "download_bytes": res.numel() * 4, "download_ms": down,
         "download_gb_s": res.numel() * 4 / down[0] / 1e6,
         "rtt_ms": rtt,

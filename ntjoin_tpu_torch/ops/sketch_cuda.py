@@ -77,9 +77,12 @@ LIB_PATH = os.path.join(_PKG, "_build", "libntjoin_cuda.so")
 # ``stream``, its compaction (``ops/sketch_general.py``, four launches a
 # batch: count, gather, chunks, decode); the copy (``ops/membw.py``) serves
 # the profiler, ``mk_s`` the Mann-Kendall S of ``mkt=True``
-# (``ops/mannkendall.py``).  ``add_count``
-# adds under a lock: a mesh of several devices sketches from a thread a
-# device (``parallel/mesh.py``).
+# (``ops/mannkendall.py``).  ``codes_held_max`` is no count but the most
+# code bytes a ``sketch_records_torch`` call held at once (its batch
+# buffer, probe block or host record, one at a time), raised by
+# ``max_count``.
+# ``add_count`` adds under a lock: a mesh of several devices sketches from a
+# thread a device (``parallel/mesh.py``).
 KERNELS = ("hash", "flags", "window_emit", "window_emit_gmem", "window", "copy", "stream",
            "mk_s")
 # each has one plain version
@@ -93,6 +96,12 @@ def add_count(name: str, n: int = 1) -> None:
         COUNTS[name] += n
 
 
+def max_count(name: str, value: int) -> None:
+    """Raise ``COUNTS[name]`` to ``value`` where it is lower."""
+    with COUNT_LOCK:
+        COUNTS[name] = max(COUNTS[name], value)
+
+
 def reset_counts() -> None:
     COUNTS.clear()
     for name in KERNELS:
@@ -104,6 +113,7 @@ def reset_counts() -> None:
     COUNTS["general_records"] = 0
     COUNTS["general_batches"] = 0
     COUNTS["exact_runs"] = 0
+    COUNTS["codes_held_max"] = 0
 
 
 reset_counts()

@@ -11,8 +11,13 @@ into batches of about ``BATCH_BASES`` bases:
   ``COUNTS["general_records"]`` and ``["general_batches"]``.
 
 A record longer than ``record_bound`` for its path is sketched whole on the
-host, decided from its length before any launch and counted in
-``COUNTS["host_records"]`` and ``["host_records_size"]``.
+host, decided from its length (and, where the two paths' bounds differ,
+its path) before any launch and counted in ``COUNTS["host_records"]`` and
+``["host_records_size"]``.
+
+The records come from a source (``io.native.FastaSource`` for a FASTA
+file), which encodes each one straight into its batch's host buffer: no
+call holds more than one batch of codes at a time.
 """
 from __future__ import annotations
 
@@ -29,8 +34,9 @@ from ntjoin_tpu_torch.ops.nthash_np import Sketch, sketch_codes
 from ntjoin_tpu_torch.ops.sketch_general import sketch_general_torch
 
 # Host-clock seconds of ``sketch_records_torch`` by stage, accumulated over
-# calls (the counterpart of ``sketch_pallas._STAGES``): plan (routes and
-# batching), pack (pinned buffer), device (upload through the sync on the
+# calls (the counterpart of ``sketch_pallas._STAGES``): plan (bounds, and
+# the probe of each record's path), pack (host records, and each record's
+# encode into its batch buffer), device (upload through the sync on the
 # result) and split (per-record split).  Callers clear it.
 STAGES: dict[str, float] = {}
 
@@ -81,18 +87,27 @@ def _host_sketch(codes: np.ndarray, k: int, w: int) -> Sketch:
 _EMPTY = Sketch(np.empty(0, dtype=np.int64), np.empty(0, dtype=np.uint64))
 
 
-def pack_batch(batch: list[np.ndarray], k: int, w: int,
-               pin: bool = False) -> tuple[torch.Tensor, int, np.ndarray]:
-    """The records joined by max(k - 1, 1) invalid bases into one int8
-    stream in host memory (pinned with ``pin``), padded with invalid bases
-    to the length ``sketch_fused_torch`` wants: (stream, its data bases, the
-    records' offsets in it)."""
-    sep = max(k - 1, 1)
-    lens = np.array([c.shape[0] for c in batch], dtype=np.int64)
-    offsets = np.concatenate([[0], np.cumsum(lens + sep)[:-1]]).astype(np.int64)
-    total = int(offsets[-1] + lens[-1] + sep)
+def stream_len(total: int, k: int, w: int) -> int:
+    """Bases of the int8 stream ``sketch_fused_torch`` wants for ``total``
+    data bases: the chunk layout's C * L k-mer starts and a halo."""
     C, L = sc.layout(total, k, w)
-    host = torch.full((C * L + w + k - 2,), CODE_INVALID, dtype=torch.int8, pin_memory=pin)
+    return C * L + w + k - 2
+
+
+def join_offsets(lens: np.ndarray, k: int) -> tuple[np.ndarray, int]:
+    """Offsets of records of ``lens`` bases joined by max(k - 1, 1) invalid
+    bases, and the stream's data bases (each record and its separator)."""
+    ends = np.cumsum(np.asarray(lens, dtype=np.int64) + max(k - 1, 1))
+    return np.concatenate([[0], ends[:-1]]).astype(np.int64), int(ends[-1])
+
+
+def pack_batch(batch: list[np.ndarray], k: int,
+               w: int) -> tuple[torch.Tensor, int, np.ndarray]:
+    """The records joined by max(k - 1, 1) invalid bases into one int8
+    stream in host memory, padded with invalid bases to ``stream_len``:
+    (stream, its data bases, the records' offsets in it)."""
+    offsets, total = join_offsets([c.shape[0] for c in batch], k)
+    host = torch.full((stream_len(total, k, w),), CODE_INVALID, dtype=torch.int8)
     hv = host.numpy()
     for o, c in zip(offsets, batch):
         hv[o : o + c.shape[0]] = c
@@ -103,16 +118,15 @@ def _fused(flat, n, starts, k, w, slot_cap, plain):
     return sc.sketch_fused_torch(flat, n, k, w, slot_cap, plain)
 
 
-def _sketch_batch(batch: list[np.ndarray], k: int, w: int, device: torch.device, sketch,
-                  slot_cap: int | None, plain: bool) -> list[Sketch]:
-    """Join the records (``pack_batch``), sketch the stream on the device by
-    ``sketch(flat, n, starts, k, w, slot_cap, plain)`` and split the
-    emissions per record."""
-    t0 = time.monotonic()
-    host, total, offsets = pack_batch(batch, k, w, pin=device.type == "cuda")
+def _sketch_batch(host: torch.Tensor, total: int, offsets: np.ndarray, k: int, w: int,
+                  device: torch.device, sketch, slot_cap: int | None,
+                  plain: bool) -> list[Sketch]:
+    """Sketch the joined stream ``host`` (``total`` data bases, records at
+    ``offsets``) on the device by ``sketch(flat, n, starts, k, w, slot_cap,
+    plain)`` and split the emissions per record."""
     if total - k + 1 < w:
-        return [_EMPTY] * len(batch)
-    t0 = _stage("pack", t0)
+        return [_EMPTY] * len(offsets)
+    t0 = time.monotonic()
     flat = host.to(device, non_blocking=True)
     starts = torch.from_numpy(offsets).to(device)
     pos, canon = sketch(flat, total, starts, k, w, slot_cap, plain)
@@ -129,13 +143,14 @@ def _sketch_batch(batch: list[np.ndarray], k: int, w: int, device: torch.device,
     return out
 
 
-def _batches(entries: list[tuple[int, np.ndarray]], k: int, limit: int) -> list[list]:
-    """Entries packed in order into batches of about ``limit`` bases
-    (separators included); a longer entry gets a batch of its own."""
-    batches: list[list[tuple[int, np.ndarray]]] = []
+def _batches(entries: list[tuple[int, int]], k: int, limit: int) -> list[list]:
+    """Entries (index, bases) packed in order into batches of about
+    ``limit`` bases (separators included); a longer entry gets a batch of
+    its own."""
+    batches: list[list[tuple[int, int]]] = []
     acc = 0
     for ent in entries:
-        sz = int(ent[1].shape[0]) + k - 1
+        sz = int(ent[1]) + k - 1
         if not batches or acc + sz > limit:
             batches.append([])
             acc = 0
@@ -144,38 +159,166 @@ def _batches(entries: list[tuple[int, np.ndarray]], k: int, limit: int) -> list[
     return batches
 
 
-def sketch_records_torch(codes_list: list[np.ndarray], k: int, w: int,
-                         device: str | torch.device = "cuda", *,
+class CodesList:
+    """A list of base-code arrays as a record source: ``lengths``,
+    ``codes_into``, ``codes`` and ``clean``, as ``io.native.FastaSource``
+    gives them."""
+
+    def __init__(self, arrays):
+        self._arrays = [np.asarray(c) for c in arrays]
+        self.lengths = np.array([c.shape[0] for c in self._arrays], dtype=np.int64)
+
+    def __len__(self) -> int:
+        return len(self._arrays)
+
+    def codes_into(self, i: int, out: np.ndarray) -> None:
+        out[:] = self._arrays[i]
+
+    def codes(self, i: int) -> np.ndarray:
+        return self._arrays[i]
+
+    def clean(self, i: int, scratch: np.ndarray | None = None) -> bool:
+        return not bool((self._arrays[i] >= CODE_INVALID).any())
+
+
+class Subset:
+    """Records ``idx`` of a source, as a source of their own."""
+
+    def __init__(self, source, idx):
+        self.source = source
+        self.idx = [int(i) for i in idx]
+        self.lengths = np.asarray(source.lengths, dtype=np.int64)[self.idx]
+
+    def __len__(self) -> int:
+        return len(self.idx)
+
+    def codes_into(self, j: int, out: np.ndarray) -> None:
+        self.source.codes_into(self.idx[j], out)
+
+    def codes(self, j: int) -> np.ndarray:
+        return self.source.codes(self.idx[j])
+
+    def clean(self, j: int, scratch: np.ndarray | None = None) -> bool:
+        return self.source.clean(self.idx[j], scratch)
+
+
+def as_source(records):
+    """``records`` where it is a source (it has ``codes_into``), else a
+    ``CodesList`` of the arrays."""
+    return records if hasattr(records, "codes_into") else CodesList(records)
+
+
+_PAGE = 4096
+
+
+def host_buffer(size: int, pin: bool) -> torch.Tensor:
+    """``size`` invalid bases in page-aligned host memory; with ``pin``,
+    page-locked for the upload by ``cudaHostRegister``: torch's pinned
+    allocator would round a batch of 2^28 bases up to a block of 2^29 and
+    keep it cached after the call."""
+    raw = np.empty(size + _PAGE, dtype=np.int8)
+    start = -raw.ctypes.data % _PAGE
+    buf = torch.from_numpy(raw[start : start + size])
+    buf.fill_(CODE_INVALID)
+    if pin:
+        rc = int(torch.cuda.cudart().cudaHostRegister(buf.data_ptr(), size, 0))
+        if rc:
+            raise RuntimeError(f"cudaHostRegister of {size} bytes failed: cudaError {rc}")
+    return buf
+
+
+def unpin(buf: torch.Tensor) -> None:
+    """Undo ``host_buffer``'s page-locking, before the buffer is freed."""
+    rc = int(torch.cuda.cudart().cudaHostUnregister(buf.data_ptr()))
+    if rc:
+        raise RuntimeError(f"cudaHostUnregister failed: cudaError {rc}")
+
+
+def _plan(src, lengths: np.ndarray, bound: dict):
+    """Each record's path, by ``src.clean`` read ``PROBE_BASES`` at a
+    time: ({general: [(index, bases)]} of the device records, the indices
+    of the host records).  A record longer than its path's bound takes the
+    host; the general path's bound is never the larger (more bytes a
+    base), so a record longer than the fused bound is not probed."""
+    paths: dict[bool, list[tuple[int, int]]] = {False: [], True: []}
+    hosts: list[int] = []
+    scratch = np.empty(min(int(lengths.max(initial=0)), native.PROBE_BASES), dtype=np.uint8)
+    sc.max_count("codes_held_max", scratch.shape[0])
+    for i, n in enumerate(lengths.tolist()):
+        general = n > bound[False] or not src.clean(i, scratch)
+        if n > bound[general]:
+            hosts.append(i)
+        else:
+            paths[general].append((i, n))
+    return paths, hosts
+
+
+def _run_path(src, batches: list, general: bool, k: int, w: int, device: torch.device,
+              slot_cap, plain: bool, out: list) -> None:
+    """The batches of one path, each record encoded by ``src.codes_into``
+    at its offset in one host buffer (pinned on a card) as large as the
+    path's largest stream, reused batch after batch."""
+    sep = max(k - 1, 1)
+    sketch = sketch_general_torch if general else _fused
+    joined = [join_offsets([n for _, n in b], k) for b in batches]
+    size = max(stream_len(total, k, w) for _, total in joined)
+    pin = device.type == "cuda"
+    buf = host_buffer(size, pin)
+    sc.max_count("codes_held_max", size)
+    view = buf.numpy()
+    try:
+        for b, (offsets, total) in zip(batches, joined):
+            t0 = time.monotonic()
+            for (i, n), o in zip(b, offsets.tolist()):
+                src.codes_into(i, view[o : o + n])
+                view[o + n : o + n + sep] = CODE_INVALID
+            end = stream_len(total, k, w)
+            view[total:end] = CODE_INVALID
+            _stage("pack", t0)
+            sc.add_count("general_batches", general)
+            got = _sketch_batch(buf[:end], total, offsets, k, w, device, sketch, slot_cap, plain)
+            for (i, _), sk in zip(b, got):
+                out[i] = sk
+    finally:
+        if pin:
+            unpin(buf)
+
+
+def sketch_records_torch(records, k: int, w: int, device: str | torch.device = "cuda", *,
                          slot_cap: int | None = None, plain: bool = False) -> list[Sketch]:
     """Minimizer sketches of many records, bit-identical to
     ``ops.nthash_np.sketch_codes`` on each: N-free records by the fused
     path, records with N runs by the general path, each path in batches of
-    its own; a record longer than its path's ``record_bound(device)`` whole
-    on the host.  ``slot_cap`` and ``plain`` pass to ``sketch_fused_torch``
-    and ``sketch_general_torch``."""
+    its own (``_batches``); a record longer than its path's
+    ``record_bound(device)`` whole on the host.  ``slot_cap`` and ``plain``
+    pass to ``sketch_fused_torch`` and ``sketch_general_torch``.
+
+    ``records`` is a source (``io.native.FastaSource``, ``Subset``) or a
+    list of code arrays.  The call reads each record's path first
+    (``clean``), then sketches the host records one at a time, then each
+    path's batches, each record encoded straight into the path's batch
+    buffer.  It holds one of the probe's block, one batch buffer or one host
+    record's codes at a time: the largest of them is raised into
+    ``COUNTS["codes_held_max"]``."""
     t0 = time.monotonic()
+    src = as_source(records)
     device = torch.device(device)
+    lengths = np.asarray(src.lengths, dtype=np.int64)
     bound = {general: record_bound(device, general) for general in (False, True)}
-    out: list[Sketch] = [_EMPTY] * len(codes_list)
-    paths: dict[bool, list[tuple[int, np.ndarray]]] = {False: [], True: []}
-    for i, c in enumerate(codes_list):
-        c = np.asarray(c)
-        general = bool((c >= CODE_INVALID).any())
-        if c.shape[0] > bound[general]:
-            out[i] = _host_sketch(c, k, w)
-            sc.add_count("host_records")
-            sc.add_count("host_records_size")
-            continue
-        paths[general].append((i, c))
+    out: list[Sketch] = [_EMPTY] * len(lengths)
+    paths, hosts = _plan(src, lengths, bound)
     sc.add_count("general_records", len(paths[True]))
-    _stage("plan", t0)
+    t0 = _stage("plan", t0)
+    for i in hosts:
+        sc.max_count("codes_held_max", int(lengths[i]))
+        out[i] = _host_sketch(src.codes(i), k, w)
+        sc.add_count("host_records")
+        sc.add_count("host_records_size")
+    _stage("pack", t0)
     for general, entries in paths.items():
-        sketch = sketch_general_torch if general else _fused
-        for b in _batches(entries, k, min(BATCH_BASES, bound[general])):
-            sc.add_count("general_batches", general)
-            got = _sketch_batch([c for _, c in b], k, w, device, sketch, slot_cap, plain)
-            for (i, _), sk in zip(b, got):
-                out[i] = sk
+        batches = _batches(entries, k, min(BATCH_BASES, bound[general]))
+        if batches:
+            _run_path(src, batches, general, k, w, device, slot_cap, plain, out)
     return out
 
 

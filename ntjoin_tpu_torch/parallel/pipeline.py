@@ -3,10 +3,11 @@
 
 Record shard -> sketch -> global uniqueness and intersection verdict ->
 survivor exchange -> process 0 scaffolds.  Every assembly's records are
-dealt round-robin to the processes; each process sketches only its own, on
-its device (the CUDA kernels on its card unless the caller passes another
-sketcher), and keeps no local dedup: uniqueness is the global verdict's
-(``parallel/distributed.py``, by hash bucket).  The surviving entries,
+dealt round-robin to the processes; each process reads the assembly once
+(``io.native.FastaSource``) and sketches only its own records, encoded one
+batch at a time, on its device (the CUDA kernels on its card unless the
+caller passes another sketcher), and keeps no local dedup: uniqueness is
+the global verdict's (``parallel/distributed.py``, by hash bucket).  The surviving entries,
 a small share of the streams, are gathered with int64 hashes and positions,
 and process 0 restores each assembly's stream order and runs the
 ``Scaffolder``.  Artifacts are byte-identical to a one-process run at any
@@ -25,9 +26,9 @@ import torch.distributed as dist
 from ntjoin_tpu_torch.core.assembly import AssemblySketch
 from ntjoin_tpu_torch.core.config import ScaffoldConfig
 from ntjoin_tpu_torch.core.scaffolder import Scaffolder
-from ntjoin_tpu_torch.io.fasta import read_fasta
+from ntjoin_tpu_torch.io.native import FastaSource
 from ntjoin_tpu_torch.ops import sketch_cuda
-from ntjoin_tpu_torch.ops.sketch_records import sketch_records_torch
+from ntjoin_tpu_torch.ops.sketch_records import Subset, sketch_records_torch
 from ntjoin_tpu_torch.parallel import distributed as pd
 from ntjoin_tpu_torch.utils.atomic import atomic_write
 
@@ -74,10 +75,12 @@ def _pack_rows(x: np.ndarray, fill, n_rows: int, width: int) -> np.ndarray:
 
 def distributed_assemble(cfg: DistributedConfig, sketch=None) -> dict:
     """Run one process of the pipeline; process 0 writes the artifacts.
-    ``sketch(codes list, k, w) -> list of Sketch`` sketches an assembly's
-    share of records (default: ``sketch_records_torch`` on the shards'
-    device).  Joins the process group when ``num_processes > 1`` and leaves
-    it on success and on error.  Returns this process's counts."""
+    ``sketch(source, k, w) -> list of Sketch`` sketches an assembly's
+    share of records, a ``Subset`` of its ``FastaSource`` (default:
+    ``sketch_records_torch`` on the shards' device, which encodes each of
+    them into its batch buffer).  Joins the process group when
+    ``num_processes > 1`` and leaves it on success and on error.  Returns
+    this process's counts."""
     if cfg.num_processes > 1 and cfg.coordinator is None:
         raise ValueError("n_procs>1 needs coordinator=<host:port> (the process group's address)")
     pd.reset_counts()
@@ -89,8 +92,8 @@ def distributed_assemble(cfg: DistributedConfig, sketch=None) -> dict:
         shards = [pd.shard_device(cfg.process_id, cfg.device)] * (cfg.local_device_count or 1)
     try:
         if sketch is None:
-            def sketch(codes, k, w):
-                return sketch_records_torch(codes, k, w, shards[0])
+            def sketch(src, k, w):
+                return sketch_records_torch(src, k, w, shards[0])
         return _assemble(cfg, shards, sketch)
     finally:
         if joined:
@@ -106,13 +109,12 @@ def _assemble(cfg: DistributedConfig, shards: list[torch.device], sketch) -> dic
     cols: list[np.ndarray] = []  # (hash, assembly, contig, position) per record
     n_records = 0
     for a, fa in enumerate(fastas):
-        recs = read_fasta(fa)
-        names[a] = [r.id for r in recs]
-        mine = list(range(cfg.process_id, len(recs), cfg.num_processes))
-        sketches = sketch([recs[i].codes for i in mine], k, w)
+        with FastaSource(fa) as src:
+            names[a] = src.names
+            mine = list(range(cfg.process_id, len(src), cfg.num_processes))
+            sketches = sketch(Subset(src, mine), k, w)
         n_records += len(mine)
         for ri, sk in zip(mine, sketches):
-            recs[ri]._codes = None
             m = sk.hashes.shape[0]
             cols.append(np.stack([sk.hashes.view(np.int64), np.full(m, a), np.full(m, ri),
                                   sk.positions.astype(np.int64)]))

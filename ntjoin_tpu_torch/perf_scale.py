@@ -23,14 +23,23 @@ needs one exits 1 with "no CUDA device" on stderr before writing anything.
 The last stdout line is one JSON object: ``mbp``, ``refs``, ``backend``,
 ``e2e_s`` (host clock around ``cli.main``), ``rss_gb`` (peak RSS of this
 process, ``utils/timers.peak_rss_kb``), ``rc`` and ``stages`` (each
-``time=True`` stage's wall and peak RSS), and ``rss_inherited_gb``, the
+``time=True`` stage's wall, peak RSS, resident set at its start and end
+and the highest one read while it was open), and ``rss_inherited_gb``, the
 same peak read at the start: where the system carries the peak of the
 spawning process over (``ru_maxrss``), a peak no higher than this is not
 the run's own.  A run on a card adds ``cuda_init_s`` and
 ``rss_cuda_init_gb`` (the first CUDA context, made before the run, and the
 resident set just after it),
 ``device_peak_gb`` (``torch.cuda.max_memory_allocated`` over the run),
-``device`` and the run's ``sketch_counts`` and ``index_counts``.
+``device``, the run's ``sketch_counts`` and ``index_counts``, and
+``sketch_stages_s``, the host clock of ``sketch_records_torch`` by stage
+(``plan``: each record's path read from its codes).  A
+sampler thread reads the resident set every ``utils/timers.SAMPLE_S``
+seconds: ``sampled`` gives each stage's first and highest sample of ``VmRSS``,
+``RssAnon`` and ``RssFile`` (None where ``/proc`` has no such line);
+``--py_top STAGE`` adds ``py_top``, the
+largest holders of the Python heap (tracemalloc, by source line) near its
+peak in that stage.
 """
 from __future__ import annotations
 
@@ -44,10 +53,13 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import tracemalloc
 
 import numpy as np
 
+from ntjoin_tpu_torch.utils import timers
 from ntjoin_tpu_torch.utils.timers import peak_rss_kb, status_kb
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -118,15 +130,101 @@ def _peak_rss_gb() -> float:
     return peak_rss_kb() / 1e6
 
 
+def _gb(kb: str) -> float | None:
+    return None if kb == "None" else int(kb) / 1e6
+
+
 def _stages() -> dict:
-    """Each ``out.*.time`` file's stage: its wall and the peak RSS at its end."""
+    """Each ``out.*.time`` file's stage: its wall, the peak RSS at its end,
+    the resident set at its start and at its end and the highest one read
+    while it was open."""
     stages = {}
     for tf in sorted(glob.glob("out.*.time")):
         with open(tf, encoding="utf-8") as fh:
             kv = dict(line.split("\t") for line in fh.read().splitlines())
         stages[kv["stage"]] = {"wall_s": float(kv["wall_s"]),
-                               "rss_gb": int(kv["peak_rss_kb"]) / 1e6}
+                               "rss_gb": _gb(kv["peak_rss_kb"]),
+                               "rss_start_gb": _gb(kv["rss_start_kb"]),
+                               "rss_end_gb": _gb(kv["rss_end_kb"]),
+                               "rss_max_gb": _gb(kv["rss_max_kb"])}
     return stages
+
+
+_RSS_FIELDS = ("VmRSS", "RssAnon", "RssFile")
+
+
+class RssSampler:
+    """A thread that reads this process's resident set every
+    ``timers.SAMPLE_S`` seconds, ``VmRSS`` and its anonymous and file-backed parts (``RssAnon``,
+    ``RssFile``), and keeps for each stage (``timers.OPEN``) its first
+    sample and the one of the highest ``VmRSS``.  With ``py_stage`` it
+    traces the Python heap (tracemalloc) and keeps a snapshot taken in that
+    stage whenever the traced bytes passed the last one's by 5%: the
+    holders near its peak of what the stage allocated (tracing starts at
+    the stage's first sample and stops when it ends)."""
+
+    def __init__(self, py_stage: str | None = None):
+        self.py_stage = py_stage
+        self.first: dict[str, tuple] = {}
+        self.peak: dict[str, tuple] = {}
+        self.py = None  # (traced bytes, snapshot)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _sample(self) -> None:
+        stage = timers.OPEN[-1] if timers.OPEN else "(outside stages)"
+        got = tuple(status_kb(f) for f in _RSS_FIELDS)  # None where the system lacks one
+        self.first.setdefault(stage, got)
+        if (got[0] or 0) > (self.peak.get(stage, (-1,))[0] or 0):
+            self.peak[stage] = got
+        if stage != self.py_stage:
+            if tracemalloc.is_tracing():
+                tracemalloc.stop()
+            return
+        if not tracemalloc.is_tracing():
+            tracemalloc.start(16)
+        traced = tracemalloc.get_traced_memory()[0]
+        if self.py is None or traced > 1.05 * self.py[0]:
+            self.py = (traced, tracemalloc.take_snapshot())
+
+    def _run(self) -> None:
+        while not self._stop.wait(timers.SAMPLE_S):
+            self._sample()
+
+    def __enter__(self) -> RssSampler:
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        tracemalloc.stop()
+
+    def report(self) -> dict:
+        """{stage: {"first" | "peak": {VmRSS, RssAnon, RssFile in GB}}}."""
+        def gb(sample):
+            return {f: None if kb is None else kb / 1e6 for f, kb in zip(_RSS_FIELDS, sample)}
+        return {stage: {"first": gb(self.first[stage]), "peak": gb(self.peak[stage])}
+                for stage in self.peak}
+
+    def py_top(self, n: int = 12) -> list[dict]:
+        """The snapshot's ``n`` largest holders, each block put on the
+        innermost line of the port that allocated it."""
+        if self.py is None:
+            return []
+        pkg = os.path.join(_REPO, "ntjoin_tpu_torch")
+        held: dict[str, list[int]] = {}
+        for st in self.py[1].statistics("traceback"):
+            frames = [f for f in st.traceback if f.filename.startswith(pkg)]
+            f = max(frames, key=lambda f: list(st.traceback).index(f)) if frames \
+                else st.traceback[-1]
+            key = f"{os.path.relpath(f.filename, _REPO)}:{f.lineno}"
+            size = held.setdefault(key, [0, 0])
+            size[0] += st.size
+            size[1] += st.count
+        top = sorted(held.items(), key=lambda kv: -kv[1][0])[:n]
+        return [{"where": where, "gb": size / 1e9, "blocks": count}
+                for where, (size, count) in top]
 
 
 def words_for(args, ref_fas: list[str], tgt_fa: str) -> list[str]:
@@ -164,6 +262,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     help="filter and graph stages (default: the CLI's auto)")
     ap.add_argument("--device", default="cpu", help="torch device of backend=torch")
     ap.add_argument("--refs", type=int, default=1, help="number of references")
+    ap.add_argument("--py_top", default=None, metavar="STAGE",
+                    help="trace the Python heap and name its largest holders in STAGE")
     args = ap.parse_args(argv)
     if args.refs < 1:
         ap.error("--refs must be >= 1 (at least one reference assembly)")
@@ -198,7 +298,7 @@ def main(argv: list[str] | None = None) -> int:
     print(f"[inputs] {args.mbp} Mbp generated in {time.perf_counter() - t0:.1f}s", flush=True)
 
     from ntjoin_tpu_torch import cli
-    from ntjoin_tpu_torch.ops import device_index, sketch_cuda
+    from ntjoin_tpu_torch.ops import device_index, sketch_cuda, sketch_records
 
     out = {"rss_inherited_gb": inherited}
     if on_card:
@@ -209,24 +309,30 @@ def main(argv: list[str] | None = None) -> int:
         out["rss_cuda_init_gb"] = (status_kb("VmRSS") or peak_rss_kb()) / 1e6
         torch.cuda.reset_peak_memory_stats()
     sketch_cuda.reset_counts()
+    sketch_records.STAGES.clear()
     # artifact names are prefix + "." + target TSV name: relative paths, as
     # the reference's Makefile runs them
     cwd = os.getcwd()
     os.chdir(workdir)
     try:
         words = words_for(args, ref_fas, tgt_fa)
+        sampler = RssSampler(args.py_top)
         t0 = time.perf_counter()
-        if args.profile:
-            prof = cProfile.Profile()
-            prof.enable()
-            rc = cli.main(words)
-            prof.disable()
-            stats = pstats.Stats(prof, stream=sys.stdout)
-            stats.sort_stats(args.sort).print_stats(35)
-            stats.print_callees("find_paths")
-        else:
-            rc = cli.main(words)
+        with sampler:
+            if args.profile:
+                prof = cProfile.Profile()
+                prof.enable()
+                rc = cli.main(words)
+                prof.disable()
+                stats = pstats.Stats(prof, stream=sys.stdout)
+                stats.sort_stats(args.sort).print_stats(35)
+                stats.print_callees("find_paths")
+            else:
+                rc = cli.main(words)
         e2e_s = time.perf_counter() - t0
+        out["sampled"] = sampler.report()
+        if args.py_top:
+            out["py_top"] = sampler.py_top()
         print(f"[e2e] assemble rc={rc} in {e2e_s:.1f}s", flush=True)
         stages = _stages()
     finally:
@@ -237,6 +343,7 @@ def main(argv: list[str] | None = None) -> int:
         result.update(device_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                       device=torch.cuda.get_device_name(0),
                       sketch_counts=dict(sketch_cuda.COUNTS),
+                      sketch_stages_s=dict(sketch_records.STAGES),
                       index_counts=device_index.counts_report())
     print(json.dumps(result), flush=True)
     if not args.keep:

@@ -20,6 +20,7 @@ from ntjoin_tpu.parallel import distributed as jax_dist
 from ntjoin_tpu.parallel.mesh import _tile_record as jax_tile_record
 from ntjoin_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from ntjoin_tpu_torch import bench, perf_scale, scaling_proxy, split_bench
+from ntjoin_tpu_torch.utils import timers
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ORIGINAL_KEYS = ("mbp", "refs", "backend", "e2e_s", "rss_gb", "rc", "stages")
@@ -88,6 +89,30 @@ def test_perf_scale_host_run_matches_jax_cli(tmp_path, capsys, monkeypatch):
     for name in made:
         assert (work / name).read_bytes() == (ref / name).read_bytes(), name
     assert (ref / "out.path").read_text().count("ntJoin") >= 1
+
+
+def test_perf_scale_samples_each_stage(tmp_path, capsys, monkeypatch):
+    """``perf_scale``'s resident-set sampler: every stage's first and
+    highest ``VmRSS`` sample, each stage file's resident set at its start
+    and end and its highest read, and with ``--py_top scaffold`` the Python
+    heap's holders there by line of the port."""
+    monkeypatch.setattr(timers, "SAMPLE_S", 0.001)  # samples in each stage of a 2 Mbp run
+    rc = perf_scale.main(["--mbp", "2", "--backend", "numpy", "--index_backend", "host",
+                          "--py_top", "scaffold", "--keep", str(tmp_path / "w")])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and line["rc"] == 0
+    stages = {"sketch:ref.fa", "sketch:target.fa", "scaffold"}
+    assert set(line["stages"]) == stages
+    for st in line["stages"].values():
+        assert 0 < st["rss_start_gb"] <= st["rss_gb"] and 0 < st["rss_end_gb"] <= st["rss_gb"]
+        # VmRSS and the peak's VmHWM are read at different precision
+        assert max(st["rss_start_gb"], st["rss_end_gb"]) <= st["rss_max_gb"] <= st["rss_gb"] + 0.01
+    assert stages <= set(line["sampled"])
+    for name in stages:
+        first, peak = line["sampled"][name]["first"], line["sampled"][name]["peak"]
+        assert 0 < first["VmRSS"] <= peak["VmRSS"] <= line["rss_gb"] + 0.01
+    assert line["py_top"] and all(h["gb"] > 0 and h["blocks"] > 0 for h in line["py_top"])
+    assert any(h["where"].startswith("ntjoin_tpu_torch/") for h in line["py_top"])
 
 
 @pytest.fixture(scope="module")

@@ -193,6 +193,38 @@ def test_two_process_assemble_matches_one_process(tmp_path, fixture):
         assert '"all_to_all"' in line and '"hash_plain"' in line
 
 
+def test_source_fed_pipeline_matches_codes_fed(tmp_path, monkeypatch):
+    """One process of the pipeline on two CPU shards: each process's
+    records fed to ``sketch_records_torch`` as a ``Subset`` of the
+    assembly's ``FastaSource`` (the default) give the artifacts, byte for
+    byte, and the entries and survivors of the same records fed as a list
+    of their codes."""
+    from ntjoin_tpu_torch.ops.sketch_records import sketch_records_torch
+
+    def codes_fed(src, k, w):
+        return sketch_records_torch([src.codes(i) for i in range(len(src))], k, w, "cpu")
+
+    counts = {}
+    for name, sketch in (("source", None), ("codes", codes_fed)):
+        d = tmp_path / name
+        d.mkdir()
+        _more_sequences(d)
+        monkeypatch.chdir(d)
+        cfg = DistributedConfig(target="target.fa", references=["ref.fa"],
+                                reference_weights=[2.0], prefix="d", k=32, w=250, n=2,
+                                local_device_count=2, device="cpu",
+                                scaffold_opts={"agp": True, "index_backend": "host"})
+        counts[name] = distributed_assemble(cfg, sketch)
+    made = sorted(p.name for p in (tmp_path / "codes").iterdir())
+    assert "d.path" in made and "target.fa.k32.w250.n2.all.scaffolds.fa" in made
+    assert sorted(p.name for p in (tmp_path / "source").iterdir()) == made
+    for name in made:
+        assert (tmp_path / "source" / name).read_bytes() == \
+            (tmp_path / "codes" / name).read_bytes(), name
+    for key in ("records", "entries", "survivors"):
+        assert counts["source"][key] == counts["codes"][key] > 0, key
+
+
 def test_pipeline_refuses_processes_without_a_coordinator():
     cfg = DistributedConfig(target="t.fa", references=["r.fa"], reference_weights=[2.0],
                             prefix="p", num_processes=2, device="cpu")

@@ -17,6 +17,7 @@ import io
 import os
 import shutil
 import subprocess
+import time
 
 import numpy as np
 import pytest
@@ -289,8 +290,29 @@ def test_stage_timers(tmp_path, capsys):
             pass
         quiet.report()
         assert capsys.readouterr().out == "" and not list(d.glob("quiet*"))
-    assert shapes[0] == shapes[1]
+    # the port's stage files add the resident set at each stage's start and
+    # end and the highest one read while it was open
+    jax_files, port_files = shapes[PKGS.index(JAX)][2], shapes[PKGS.index(PORT)][2]
+    assert port_files == {name: keys + ["rss_start_kb", "rss_end_kb", "rss_max_kb"]
+                          for name, keys in jax_files.items()}
+    assert shapes[0][:2] == shapes[1][:2]
     assert shapes[0][0] == ["stage", "sketch:ref/one.fa", "scaffold"]
+
+
+def test_stage_rss_max_sees_a_freed_block(tmp_path, monkeypatch):
+    """``rss_max_kb`` of a stage file is the highest resident set read while
+    the stage was open: 64 MB touched and freed inside the stage shows in
+    it and not in the stage's end."""
+    tm = mod(PORT, "utils.timers")
+    monkeypatch.setattr(tm, "SAMPLE_S", 0.001)
+    timers = tm.StageTimers(enabled=True, prefix=str(tmp_path / "run"))
+    with timers.stage("grow"):
+        block = np.ones(64 << 20, dtype=np.uint8)
+        time.sleep(0.2)
+        del block
+    kv = dict(ln.split("\t") for ln in (tmp_path / "run.grow.time").read_text().splitlines())
+    start, end, most = (int(kv[key]) for key in ("rss_start_kb", "rss_end_kb", "rss_max_kb"))
+    assert most - start > 60_000 and most - end > 60_000
 
 
 # -- io ---------------------------------------------------------------------------------
@@ -480,13 +502,24 @@ def test_assembly_sketch_from_records(pipes, fa):
     assert pipes[PORT]["assemblies"][i].hash.shape[0] > 20 * (1 + (fa != "target.fa"))
 
 
+def _write_tsv(pkg: str, path: str, pipes, d, fa: str, **kw) -> None:
+    """A package's minimizer TSV of assembly ``fa`` (in directory d): the
+    JAX package's writer takes the records, the port's a ``FastaSource``
+    over the file, whose bytes give each k-mer's text."""
+    wr, sketches = mod(pkg, "emit.writers"), pipes[pkg]["sketches"][fa]
+    if pkg == JAX:
+        wr.write_minimizer_tsv(path, pipes[pkg]["records"][fa], sketches, K, **kw)
+    else:
+        with mod(pkg, "io.native").FastaSource(str(d / fa)) as src:
+            wr.write_minimizer_tsv(path, src, sketches, K, **kw)
+
+
 def test_assembly_sketch_from_tsv(pipes, scenario, tmp_path):
     """Every writer of the TSV and every reader of it, crosswise."""
     tsvs = {}
     for pkg in PKGS:
         path = tmp_path / f"{pkg}.target.fa.k{K}.w{W}.tsv"
-        mod(pkg, "emit.writers").write_minimizer_tsv(
-            str(path), pipes[pkg]["records"]["target.fa"], pipes[pkg]["sketches"]["target.fa"], K)
+        _write_tsv(pkg, str(path), pipes, scenario, "target.fa")
         tsvs[pkg] = path
     assert tsvs[JAX].read_bytes() == tsvs[PORT].read_bytes()
     shutil.copy(tsvs[JAX], tmp_path / "one.tsv")
@@ -777,13 +810,12 @@ def test_writers_dot(pipes, tmp_path, monkeypatch, native_writer):
 
 
 @pytest.mark.parametrize("with_seq", [True, False])
-def test_writers_tsv_and_bed(pipes, tmp_path, with_seq):
+def test_writers_tsv_and_bed(pipes, scenario, tmp_path, with_seq):
     outs = []
     for pkg in PKGS:
         wr = mod(pkg, "emit.writers")
         tsv, bed = tmp_path / f"{pkg}.tsv", tmp_path / f"{pkg}.bed"
-        wr.write_minimizer_tsv(str(tsv), pipes[pkg]["records"]["ref1.fa"],
-                               pipes[pkg]["sketches"]["ref1.fa"], K, with_seq=with_seq)
+        _write_tsv(pkg, str(tsv), pipes, scenario, "ref1.fa", with_seq=with_seq)
         wr.write_bed(str(bed), mod(pkg, "ops.intervals").sort_beds(_beds(pkg, 4)))
         outs.append((tsv.read_bytes(), bed.read_bytes()))
     assert outs[0] == outs[1] and outs[0][0] and outs[0][1]
@@ -797,8 +829,7 @@ def _scaffold(pkg: str, d, pipes, index_backend: str, overlap: bool, agp: bool, 
     returns {artifact: bytes}."""
     for fa, _ in FASTAS:
         shutil.copy(d.parent / fa, d / fa)
-        mod(pkg, "emit.writers").write_minimizer_tsv(
-            f"{fa}.k{K}.w{W}.tsv", pipes[pkg]["records"][fa], pipes[pkg]["sketches"][fa], K)
+        _write_tsv(pkg, f"{fa}.k{K}.w{W}.tsv", pipes, d, fa)
     cfg = mod(pkg, "core.config").ScaffoldConfig(
         references=[f"ref1.fa.k{K}.w{W}.tsv", f"ref2.fa.k{K}.w{W}.tsv"],
         target=f"target.fa.k{K}.w{W}.tsv", target_weight=1.0, reference_weights=[2.0, 2.0],

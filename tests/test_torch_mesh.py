@@ -197,3 +197,23 @@ def test_devices_that_differ_sketch_in_threads():
     # one batch a device call: each launches every plain op once
     for op in ("hash", "flags", "window_emit"):
         assert sc.COUNTS[f"{op}_plain"] == mesh.COUNTS["device_calls"], op
+
+
+def test_source_fed_mesh_matches_list_fed(tmp_path):
+    """The CLI's mesh sketcher fed by a ``FastaSource`` (a generator of each
+    record's codes that keeps none) equals ``sketch_records_sharded`` of the
+    list of codes and the oracle, on the mixed records over 3 shards."""
+    from ntjoin_tpu_torch import cli
+    from ntjoin_tpu_torch.io.native import FastaSource
+
+    recs, k, w = _mixed(np.random.default_rng(17))
+    letters = np.frombuffer(b"ACGTN", dtype=np.uint8)
+    (tmp_path / "a.fa").write_bytes(b"".join(
+        b">r%d\n" % i + letters[c].tobytes() + b"\n" for i, c in enumerate(recs)))
+    devices = ["cpu"] * 3
+    mesh.reset_counts()
+    with FastaSource(str(tmp_path / "a.fa")) as src:
+        got = cli._sharded(devices)(src, k, w)
+    assert mesh.COUNTS["sharded_records"] == len(recs)
+    _assert_same(got, mesh.sketch_records_sharded(recs, k, w, devices))
+    _assert_same(got, [sketch_codes(c, k, w) for c in recs])
