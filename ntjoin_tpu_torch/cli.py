@@ -57,6 +57,7 @@ from ntjoin_tpu_torch.parallel.pipeline import (
     distributed_assemble,
     write_all_scaffolds,
 )
+from ntjoin_tpu_torch.utils import timers
 from ntjoin_tpu_torch.utils.timers import StageTimers
 
 VERSION = "ntjoin-tpu 0.1.0 (capability parity target: ntJoin v1.1.5)"
@@ -188,12 +189,13 @@ def _sharded(mesh: list[str]):
 
 
 def _ensure_sketch(fasta: str, k: int, w: int, force: bool, sketch,
-                   timers: StageTimers) -> tuple[str, AssemblySketch | None]:
+                   stages: StageTimers) -> tuple[str, AssemblySketch | None]:
     """Write (or reuse, Make-style) the minimizer TSV and .fai of one
     assembly, as ``ntjoin_tpu.cli._ensure_sketch`` does: the records come
     from one ``FastaSource``, and each k-mer's text in the TSV from the
     reader's bytes of its record."""
     tsv = f"{fasta}.k{k}.w{w}.tsv"
+    base = os.path.basename(fasta)
     fresh = (
         not force
         and os.path.exists(tsv)
@@ -201,23 +203,33 @@ def _ensure_sketch(fasta: str, k: int, w: int, force: bool, sketch,
     )
     fai = fasta + ".fai"
     if force or not os.path.exists(fai) or os.path.getmtime(fai) < os.path.getmtime(fasta):
-        write_fai(fasta)
+        with timers.span(f"fai:{base}"):
+            write_fai(fasta)
     if fresh:
         return tsv, None
-    with timers.stage(f"sketch:{os.path.basename(fasta)}"):
-        with native.FastaSource(fasta) as src:
+    with stages.stage(f"sketch:{base}"):
+        with timers.span("reader"):
+            src = native.FastaSource(fasta)
+        try:
             sketches = sketch(src, k, w)
-            write_minimizer_tsv(tsv, src, sketches, k)
+            with timers.span("tsv"):
+                write_minimizer_tsv(tsv, src, sketches, k)
             names = src.names
-    hs = [np.asarray(sk.hashes, dtype=np.uint64) for sk in sketches]
-    ps = [np.asarray(sk.positions, dtype=np.int64) for sk in sketches]
-    cs = [np.full(len(sk.positions), i, dtype=np.int32) for i, sk in enumerate(sketches)]
-    return tsv, AssemblySketch.from_stream(
-        tsv, 1.0, names,
-        np.concatenate(hs) if hs else np.empty(0, np.uint64),
-        np.concatenate(ps) if ps else np.empty(0, np.int64),
-        np.concatenate(cs) if cs else np.empty(0, np.int32),
-    )
+        finally:
+            with timers.span("reader"):
+                src.close()
+    if timers.ON:
+        timers.count("minimizers", sum(len(sk.positions) for sk in sketches))
+    with timers.span(f"unique:{base}"):
+        hs = [np.asarray(sk.hashes, dtype=np.uint64) for sk in sketches]
+        ps = [np.asarray(sk.positions, dtype=np.int64) for sk in sketches]
+        cs = [np.full(len(sk.positions), i, dtype=np.int32) for i, sk in enumerate(sketches)]
+        return tsv, AssemblySketch.from_stream(
+            tsv, 1.0, names,
+            np.concatenate(hs) if hs else np.empty(0, np.uint64),
+            np.concatenate(ps) if ps else np.empty(0, np.int64),
+            np.concatenate(cs) if cs else np.empty(0, np.int32),
+        )
 
 
 def assemble(words: list[str]) -> int:
@@ -266,46 +278,49 @@ def assemble(words: list[str]) -> int:
     )
     if int(v["n_procs"]) > 1 or v["coordinator"] != "None":
         return _distributed(v, k, w, n, prefix, index_device, scaffold_opts)
-    timers = StageTimers(enabled=_truthy(v["time"]), prefix=prefix)
-    mesh = _mesh(v)
-    sketch = _sharded(mesh) if mesh else _sketcher(v["backend"], index_device)
-    cache: dict[str, AssemblySketch] = {}
-    tsvs = []
-    for fa in v["references"].split() + [v["target"]]:
-        tsv, sk = _ensure_sketch(fa, k, w, force, sketch, timers)
-        tsvs.append(tsv)
-        if sk is not None:
-            cache[tsv] = sk
+    stages = StageTimers(enabled=_truthy(v["time"]), prefix=prefix)
+    with timers.recording(stages.enabled):
+        mesh = _mesh(v)
+        sketch = _sharded(mesh) if mesh else _sketcher(v["backend"], index_device)
+        cache: dict[str, AssemblySketch] = {}
+        tsvs = []
+        for fa in v["references"].split() + [v["target"]]:
+            tsv, sk = _ensure_sketch(fa, k, w, force, sketch, stages)
+            tsvs.append(tsv)
+            if sk is not None:
+                cache[tsv] = sk
 
-    cfg = ScaffoldConfig(
-        references=tsvs[:-1],
-        target=tsvs[-1],
-        target_weight=float(v["target_weight"]),
-        reference_weights=[float(x) for x in v["reference_weights"].split()],
-        prefix=prefix,
-        n=n,
-        k=k,
-        w=w,
-        **scaffold_opts,
-    )
-    device_index.reset_counts()
-    mannkendall.reset_counts()
-    with timers.stage("scaffold"):
-        Scaffolder(cfg, sketch_cache=cache, device=index_device).run()
+        cfg = ScaffoldConfig(
+            references=tsvs[:-1],
+            target=tsvs[-1],
+            target_weight=float(v["target_weight"]),
+            reference_weights=[float(x) for x in v["reference_weights"].split()],
+            prefix=prefix,
+            n=n,
+            k=k,
+            w=w,
+            **scaffold_opts,
+        )
+        device_index.reset_counts()
+        mannkendall.reset_counts()
+        with stages.stage("scaffold"):
+            Scaffolder(cfg, sketch_cache=cache, device=index_device).run()
 
-    base = f"{v['target']}.k{k}.w{w}.n{n}"
-    parts = [f"{base}.assigned.scaffolds.fa", f"{base}.unassigned.scaffolds.fa"]
-    write_all_scaffolds(v["target"], k, w, n)
-    if _truthy(v["gzip"]):
-        for part in parts + [f"{base}.all.scaffolds.fa"]:
-            if os.path.exists(part):
-                _gzip_artifact(part, threads=int(v["t"]))
-    timers.report()
-    if timers.enabled:
-        print("sketch_counts\t" + json.dumps(sketch_cuda.COUNTS))
-        print("index_counts\t" + json.dumps(device_index.counts_report()))
-        print("mk_counts\t" + json.dumps(mannkendall.COUNTS))
-    return 0
+        base = f"{v['target']}.k{k}.w{w}.n{n}"
+        parts = [f"{base}.assigned.scaffolds.fa", f"{base}.unassigned.scaffolds.fa"]
+        with timers.span("all_scaffolds"):
+            write_all_scaffolds(v["target"], k, w, n)
+        if _truthy(v["gzip"]):
+            for part in parts + [f"{base}.all.scaffolds.fa"]:
+                if os.path.exists(part):
+                    _gzip_artifact(part, threads=int(v["t"]))
+        stages.report()
+        if stages.enabled:
+            print("sketch_counts\t" + json.dumps(sketch_cuda.COUNTS))
+            print("index_counts\t" + json.dumps(device_index.counts_report()))
+            print("mk_counts\t" + json.dumps(mannkendall.COUNTS))
+            print("trace_counts\t" + json.dumps(timers.trace_counts()))
+        return 0
 
 
 def _distributed(v: dict[str, str], k: int, w: int, n: int, prefix: str, device: str,

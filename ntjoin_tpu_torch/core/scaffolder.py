@@ -49,6 +49,7 @@ from ntjoin_tpu_torch.graph.paths import find_paths
 from ntjoin_tpu_torch.io.fasta import FastaStore, reverse_complement
 from ntjoin_tpu_torch.ops.device_index import build_graph_device, shared_index_device
 from ntjoin_tpu_torch.ops.intervals import complement, self_intersect_counts, sort_beds
+from ntjoin_tpu_torch.utils import timers
 from ntjoin_tpu_torch.utils.atomic import atomic_write
 
 # Load-bearing naming convention: the target FASTA path is derived from the
@@ -112,90 +113,97 @@ class Scaffolder:
         if cfg.verbose:
             self._print_parameters()
 
-        self._log("Reading minimizers")
-        assemblies = [
-            self._load_sketch(path, wt)
-            for path, wt in zip(cfg.references, cfg.reference_weights)
-        ]
-        assemblies.append(self._load_sketch(cfg.target, cfg.target_weight))
-        self.target_idx = len(assemblies) - 1
-        use_device_index = cfg.index_backend == "device"
-        if use_device_index:
-            self.shared = shared_index_device(assemblies, self.device)
-        else:
-            self.shared = SharedIndex(assemblies)
+        with timers.span("index"):
+            self._log("Reading minimizers")
+            assemblies = [
+                self._load_sketch(path, wt)
+                for path, wt in zip(cfg.references, cfg.reference_weights)
+            ]
+            assemblies.append(self._load_sketch(cfg.target, cfg.target_weight))
+            self.target_idx = len(assemblies) - 1
+            use_device_index = cfg.index_backend == "device"
+            if use_device_index:
+                self.shared = shared_index_device(assemblies, self.device)
+            else:
+                self.shared = SharedIndex(assemblies)
 
-        self._log("Generating minimizer graph")
-        weight_str = "\n".join(f"{a.name}: {a.weight}" for a in assemblies)
-        if cfg.verbose:
-            print(f"\nWeights of assemblies:\n{weight_str}\n", flush=True)
-        if use_device_index:
-            self.graph = build_graph_device(self.shared, self.device)
-        else:
-            self.graph = build_graph(self.shared)
-        if cfg.write_dot:
-            self._log("Printing graph", cfg.prefix + ".mx.dot")
-            write_dot(cfg.prefix + ".mx.dot", self.graph, self.shared)
+        with timers.span("graph"):
+            self._log("Generating minimizer graph")
+            weight_str = "\n".join(f"{a.name}: {a.weight}" for a in assemblies)
             if cfg.verbose:
-                from ntjoin_tpu_torch.emit.writers import dot_colour_legend
+                print(f"\nWeights of assemblies:\n{weight_str}\n", flush=True)
+            if use_device_index:
+                self.graph = build_graph_device(self.shared, self.device)
+            else:
+                self.graph = build_graph(self.shared)
+            if cfg.write_dot:
+                self._log("Printing graph", cfg.prefix + ".mx.dot")
+                write_dot(cfg.prefix + ".mx.dot", self.graph, self.shared)
+                if cfg.verbose:
+                    from ntjoin_tpu_torch.emit.writers import dot_colour_legend
 
-                print(dot_colour_legend(assemblies), flush=True)
+                    print(dot_colour_legend(assemblies), flush=True)
 
-        self._log("Filtering the graph")
-        min_weight = min(a.weight for a in assemblies)
-        self.graph.global_weight_filter(cfg.n, min_weight)
+            self._log("Filtering the graph")
+            min_weight = min(a.weight for a in assemblies)
+            self.graph.global_weight_filter(cfg.n, min_weight)
 
-        self.mx_extremes = self.shared.target_extremes(self.target_idx)
+            self.mx_extremes = self.shared.target_extremes(self.target_idx)
 
-        match = _TSV_NAME_RE.search(cfg.target)
-        if not match:
-            raise ValueError(
-                "Target assembly minimizer TSV file must follow the naming "
-                "convention: target_assembly.fa.k<k>.w<w>.tsv"
+        with timers.span("paths"):
+            match = _TSV_NAME_RE.search(cfg.target)
+            if not match:
+                raise ValueError(
+                    "Target assembly minimizer TSV file must follow the naming "
+                    "convention: target_assembly.fa.k<k>.w<w>.tsv"
+                )
+            self.assembly_fa, self.params = match.group(1), match.group(2)
+            # mmap-backed random access: names/lengths/slices only, the target
+            # draft is never held as whole in-memory strings (3 Gbp-scale RSS)
+            self.scaffolds = FastaStore(self.assembly_fa)
+            scaffold_lengths = {
+                name: self.scaffolds.length(name) for name in self.scaffolds.names()
+            }
+
+            self._log("Finding paths")
+            graph_paths, n_components = find_paths(
+                self.graph, self.shared, cfg.n, self.device if use_device_index else None
             )
-        self.assembly_fa, self.params = match.group(1), match.group(2)
-        # mmap-backed random access: names/lengths/slices only, the target
-        # draft is never held as whole in-memory strings (3 Gbp-scale RSS)
-        self.scaffolds = FastaStore(self.assembly_fa)
-        scaffold_lengths = {
-            name: self.scaffolds.length(name) for name in self.scaffolds.names()
-        }
+            self._log(f"Total number of components in graph: {n_components}")
 
-        self._log("Finding paths")
-        graph_paths, n_components = find_paths(
-            self.graph, self.shared, cfg.n, self.device if use_device_index else None
-        )
-        self._log(f"Total number of components in graph: {n_components}")
+        with timers.span("format"):
+            builder = PathBuilder(
+                self.shared,
+                self.target_idx,
+                scaffold_lengths,
+                self.mx_extremes,
+                k=cfg.k,
+                g_min=cfg.g,
+                g_max=cfg.G,
+                use_mkt=cfg.mkt,
+                m_percent=cfg.m,
+                device=self.device,
+            )
 
-        builder = PathBuilder(
-            self.shared,
-            self.target_idx,
-            scaffold_lengths,
-            self.mx_extremes,
-            k=cfg.k,
-            g_min=cfg.g,
-            g_max=cfg.G,
-            use_mkt=cfg.mkt,
-            m_percent=cfg.m,
-            device=self.device,
-        )
+            # format + tally, then a relocation-merge pass (ref :704-719)
+            paths: list[list[PathNode]] = []
+            incorporated: dict[str, set[Bed]] = {}
+            if timers.ON:
+                timers.count("path_minimizers", sum(len(mx) for mx, _ in graph_paths))
+            for mx_path, view in graph_paths:
+                ctg_path = builder.format_path(mx_path, view)
+                paths.append(ctg_path)
+                tally_incorporated(incorporated, ctg_path)
+            paths = [merge_relocations(p, incorporated) for p in paths]
 
-        # format + tally, then a relocation-merge pass (ref :704-719)
-        paths: list[list[PathNode]] = []
-        incorporated: dict[str, set[Bed]] = {}
-        for mx_path, view in graph_paths:
-            ctg_path = builder.format_path(mx_path, view)
-            paths.append(ctg_path)
-            tally_incorporated(incorporated, ctg_path)
-        paths = [merge_relocations(p, incorporated) for p in paths]
+            if cfg.no_cut:
+                paths = adjust_paths_no_cut(paths, scaffold_lengths, incorporated, cfg.G)
 
-        if cfg.no_cut:
-            paths = adjust_paths_no_cut(paths, scaffold_lengths, incorporated, cfg.G)
-
-        intersecting = self._intersecting_regions(incorporated)
+            intersecting = self._intersecting_regions(incorporated)
 
         self._log("Printing output scaffolds")
-        self._emit(paths, intersecting, incorporated)
+        with timers.span("emit"):
+            self._emit(paths, intersecting, incorporated)
         self._log("DONE!")
 
     # -- input -----------------------------------------------------------
@@ -344,7 +352,8 @@ class Scaffolder:
             paths[i] = path
 
         if cfg.overlap:
-            self._trim_overlaps(paths)
+            with timers.span("trim"):
+                self._trim_overlaps(paths)
 
         incorporated_list: list[Bed] = []
         ct = 0

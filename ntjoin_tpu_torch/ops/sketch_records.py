@@ -21,7 +21,7 @@ call holds more than one batch of codes at a time.
 """
 from __future__ import annotations
 
-import time
+import contextlib
 
 import numpy as np
 import torch
@@ -32,12 +32,15 @@ from ntjoin_tpu_torch.ops import sketch_cuda as sc
 from ntjoin_tpu_torch.ops import u64
 from ntjoin_tpu_torch.ops.nthash_np import Sketch, sketch_codes
 from ntjoin_tpu_torch.ops.sketch_general import sketch_general_torch
+from ntjoin_tpu_torch.utils import timers
 
 # Host-clock seconds of ``sketch_records_torch`` by stage, accumulated over
 # calls (the counterpart of ``sketch_pallas._STAGES``): plan (bounds, and
 # the probe of each record's path), pack (host records, and each record's
 # encode into its batch buffer), device (upload through the sync on the
-# result) and split (per-record split).  Callers clear it.
+# result) and split (per-record split).  Callers clear it.  Each interval
+# is a span of ``utils/timers`` (``sketch:<fa>/plan`` and so on, where
+# spans are on), and its seconds are the span's own.
 STAGES: dict[str, float] = {}
 
 # Per-batch bases: at most ``GENERAL_BYTES_PER_BASE`` a base on the card, so
@@ -58,12 +61,13 @@ FUSED_BYTES_PER_BASE = 14
 GENERAL_BYTES_PER_BASE = 22
 
 
-def _stage(name: str, t0: float) -> float:
-    """Add the seconds since t0 to ``STAGES[name]``; returns the clock."""
-    t = time.monotonic()
+@contextlib.contextmanager
+def _stage(name: str):
+    """The block as the span ``name``; its seconds added to ``STAGES[name]``."""
+    with timers.timed(name) as span:
+        yield
     with sc.COUNT_LOCK:
-        STAGES[name] = STAGES.get(name, 0.0) + (t - t0)
-    return t
+        STAGES[name] = STAGES.get(name, 0.0) + span.s
 
 
 def record_bound(device: torch.device, general: bool = False) -> int:
@@ -126,21 +130,19 @@ def _sketch_batch(host: torch.Tensor, total: int, offsets: np.ndarray, k: int, w
     plain)`` and split the emissions per record."""
     if total - k + 1 < w:
         return [_EMPTY] * len(offsets)
-    t0 = time.monotonic()
-    flat = host.to(device, non_blocking=True)
-    starts = torch.from_numpy(offsets).to(device)
-    pos, canon = sketch(flat, total, starts, k, w, slot_cap, plain)
-    pos_np = pos.cpu().numpy()
-    hashes = u64.as_u64(u64.derive_hash(canon, k))
-    t0 = _stage("device", t0)
-    # emissions ascend and records are disjoint ascending ranges
-    bounds = np.append(np.searchsorted(pos_np, offsets), pos_np.shape[0])
-    out = [
-        Sketch(positions=pos_np[a:b] - o, hashes=hashes[a:b]) if b > a else _EMPTY
-        for o, a, b in zip(offsets, bounds[:-1], bounds[1:])
-    ]
-    _stage("split", t0)
-    return out
+    with _stage("device"):
+        flat = host.to(device, non_blocking=True)
+        starts = torch.from_numpy(offsets).to(device)
+        pos, canon = sketch(flat, total, starts, k, w, slot_cap, plain)
+        pos_np = pos.cpu().numpy()
+        hashes = u64.as_u64(u64.derive_hash(canon, k))
+    with _stage("split"):
+        # emissions ascend and records are disjoint ascending ranges
+        bounds = np.append(np.searchsorted(pos_np, offsets), pos_np.shape[0])
+        return [
+            Sketch(positions=pos_np[a:b] - o, hashes=hashes[a:b]) if b > a else _EMPTY
+            for o, a, b in zip(offsets, bounds[:-1], bounds[1:])
+        ]
 
 
 def _batches(entries: list[tuple[int, int]], k: int, limit: int) -> list[list]:
@@ -263,25 +265,26 @@ def _run_path(src, batches: list, general: bool, k: int, w: int, device: torch.d
     joined = [join_offsets([n for _, n in b], k) for b in batches]
     size = max(stream_len(total, k, w) for _, total in joined)
     pin = device.type == "cuda"
-    buf = host_buffer(size, pin)
+    with timers.span("buffer"):
+        buf = host_buffer(size, pin)
     sc.max_count("codes_held_max", size)
     view = buf.numpy()
     try:
         for b, (offsets, total) in zip(batches, joined):
-            t0 = time.monotonic()
-            for (i, n), o in zip(b, offsets.tolist()):
-                src.codes_into(i, view[o : o + n])
-                view[o + n : o + n + sep] = CODE_INVALID
-            end = stream_len(total, k, w)
-            view[total:end] = CODE_INVALID
-            _stage("pack", t0)
+            with _stage("pack"):
+                for (i, n), o in zip(b, offsets.tolist()):
+                    src.codes_into(i, view[o : o + n])
+                    view[o + n : o + n + sep] = CODE_INVALID
+                end = stream_len(total, k, w)
+                view[total:end] = CODE_INVALID
             sc.add_count("general_batches", general)
             got = _sketch_batch(buf[:end], total, offsets, k, w, device, sketch, slot_cap, plain)
             for (i, _), sk in zip(b, got):
                 out[i] = sk
     finally:
         if pin:
-            unpin(buf)
+            with timers.span("buffer"):
+                unpin(buf)
 
 
 def sketch_records_torch(records, k: int, w: int, device: str | torch.device = "cuda", *,
@@ -300,21 +303,20 @@ def sketch_records_torch(records, k: int, w: int, device: str | torch.device = "
     buffer.  It holds one of the probe's block, one batch buffer or one host
     record's codes at a time: the largest of them is raised into
     ``COUNTS["codes_held_max"]``."""
-    t0 = time.monotonic()
-    src = as_source(records)
-    device = torch.device(device)
-    lengths = np.asarray(src.lengths, dtype=np.int64)
-    bound = {general: record_bound(device, general) for general in (False, True)}
-    out: list[Sketch] = [_EMPTY] * len(lengths)
-    paths, hosts = _plan(src, lengths, bound)
-    sc.add_count("general_records", len(paths[True]))
-    t0 = _stage("plan", t0)
-    for i in hosts:
-        sc.max_count("codes_held_max", int(lengths[i]))
-        out[i] = _host_sketch(src.codes(i), k, w)
-        sc.add_count("host_records")
-        sc.add_count("host_records_size")
-    _stage("pack", t0)
+    with _stage("plan"):
+        src = as_source(records)
+        device = torch.device(device)
+        lengths = np.asarray(src.lengths, dtype=np.int64)
+        bound = {general: record_bound(device, general) for general in (False, True)}
+        out: list[Sketch] = [_EMPTY] * len(lengths)
+        paths, hosts = _plan(src, lengths, bound)
+        sc.add_count("general_records", len(paths[True]))
+    with _stage("pack"):
+        for i in hosts:
+            sc.max_count("codes_held_max", int(lengths[i]))
+            out[i] = _host_sketch(src.codes(i), k, w)
+            sc.add_count("host_records")
+            sc.add_count("host_records_size")
     for general, entries in paths.items():
         batches = _batches(entries, k, min(BATCH_BASES, bound[general]))
         if batches:

@@ -156,7 +156,7 @@ _RSS_FIELDS = ("VmRSS", "RssAnon", "RssFile")
 class RssSampler:
     """A thread that reads this process's resident set every
     ``timers.SAMPLE_S`` seconds, ``VmRSS`` and its anonymous and file-backed parts (``RssAnon``,
-    ``RssFile``), and keeps for each stage (``timers.OPEN``) its first
+    ``RssFile``), and keeps for each stage (``timers.STAGE``) its first
     sample and the one of the highest ``VmRSS``.  With ``py_stage`` it
     traces the Python heap (tracemalloc) and keeps a snapshot taken in that
     stage whenever the traced bytes passed the last one's by 5%: the
@@ -172,7 +172,7 @@ class RssSampler:
         self._thread = threading.Thread(target=self._run, daemon=True)
 
     def _sample(self) -> None:
-        stage = timers.OPEN[-1] if timers.OPEN else "(outside stages)"
+        stage = timers.STAGE[-1] if timers.STAGE else "(outside stages)"
         got = tuple(status_kb(f) for f in _RSS_FIELDS)  # None where the system lacks one
         self.first.setdefault(stage, got)
         if (got[0] or 0) > (self.peak.get(stage, (-1,))[0] or 0):
