@@ -58,6 +58,7 @@ from ntjoin_tpu_torch.parallel.pipeline import (
     write_all_scaffolds,
 )
 from ntjoin_tpu_torch.utils import timers
+from ntjoin_tpu_torch.utils.atomic import atomic_write
 from ntjoin_tpu_torch.utils.timers import StageTimers
 
 VERSION = "ntjoin-tpu 0.1.0 (capability parity target: ntJoin v1.1.5)"
@@ -188,12 +189,28 @@ def _sharded(mesh: list[str]):
         (src.codes(i) for i in range(len(src))), k, w, mesh)
 
 
+def _write_fai(fasta: str, src: native.FastaSource | None) -> None:
+    """Write the ``.fai`` of ``fasta``: from the rows the native reader
+    kept while the sketch read the file, where it did, else by reading the
+    file again (``write_fai``); counted in ``fai_rescans``, 1 for a file
+    read again and 0 for one indexed from the reader's rows."""
+    with timers.span(f"fai:{os.path.basename(fasta)}"):
+        text = None if src is None else src.fai_text()
+        if text is None:
+            write_fai(fasta)
+        else:
+            with atomic_write(fasta + ".fai", "wb") as out:
+                out.write(text)
+    timers.count("fai_rescans", text is None)
+
+
 def _ensure_sketch(fasta: str, k: int, w: int, force: bool, sketch,
                    stages: StageTimers) -> tuple[str, AssemblySketch | None]:
     """Write (or reuse, Make-style) the minimizer TSV and .fai of one
     assembly, as ``ntjoin_tpu.cli._ensure_sketch`` does: the records come
     from one ``FastaSource``, and each k-mer's text in the TSV from the
-    reader's bytes of its record."""
+    reader's bytes of its record.  The file is read once: a stale ``.fai``
+    is written after the sketch from the reader's rows (``_write_fai``)."""
     tsv = f"{fasta}.k{k}.w{w}.tsv"
     base = os.path.basename(fasta)
     fresh = (
@@ -202,10 +219,10 @@ def _ensure_sketch(fasta: str, k: int, w: int, force: bool, sketch,
         and os.path.getmtime(tsv) >= os.path.getmtime(fasta)
     )
     fai = fasta + ".fai"
-    if force or not os.path.exists(fai) or os.path.getmtime(fai) < os.path.getmtime(fasta):
-        with timers.span(f"fai:{base}"):
-            write_fai(fasta)
+    fai_stale = force or not os.path.exists(fai) or os.path.getmtime(fai) < os.path.getmtime(fasta)
     if fresh:
+        if fai_stale:
+            _write_fai(fasta, None)
         return tsv, None
     with stages.stage(f"sketch:{base}"):
         with timers.span("reader"):
@@ -218,6 +235,8 @@ def _ensure_sketch(fasta: str, k: int, w: int, force: bool, sketch,
         finally:
             with timers.span("reader"):
                 src.close()
+    if fai_stale:
+        _write_fai(fasta, src)
     if timers.ON:
         timers.count("minimizers", sum(len(sk.positions) for sk in sketches))
     with timers.span(f"unique:{base}"):

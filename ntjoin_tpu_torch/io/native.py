@@ -6,12 +6,14 @@ rolling-hash sketcher (the host-native indexlr equivalent).  Callers check
 :class:`FastaSource` hands out one assembly's records from the C++ reader,
 or from the Python reader where the library is not there.
 
-The port keeps its own build of the library: the source is read where it
-is, compiled with ``g++`` and the flags of ``native/Makefile`` into
+The port keeps its own build of the library: ``native/ntjoin_native.cpp``,
+read where it is, and the port's FASTA reader
+(``ntjoin_tpu_torch/native/fasta_reader.cpp``) are compiled with ``g++`` and
+the flags of ``native/Makefile`` into
 ``ntjoin_tpu_torch/_build/libntjoin_native.so`` on first use, and rebuilt
-whenever the source is newer.  :func:`available` is False only where there
-is no compiler (or no source) to make a fresh library; a compiler that is
-present and fails is an error.
+whenever either source is newer.  :func:`available` is False only where
+there is no compiler (or no source) to make a fresh library; a compiler
+that is present and fails is an error.
 """
 from __future__ import annotations
 
@@ -27,28 +29,31 @@ _TRIED = False
 _ERROR: BaseException | None = None  # the failed build's exception, raised on every call
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_PATH = os.path.join(os.path.dirname(_PKG), "native", "ntjoin_native.cpp")
+READER_PATH = os.path.join(_PKG, "native", "fasta_reader.cpp")
 LIB_PATH = os.path.join(_PKG, "_build", "libntjoin_native.so")
 CXXFLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-pthread")
 
 
 def build() -> bool:
-    """Make ``LIB_PATH`` fresh: compile ``SRC_PATH`` unless the library is
-    newer than it.  False where that cannot be done (no source, or no
-    ``g++``) - a stale library is never loaded; raises when the compiler
-    fails."""
-    if not os.path.exists(SRC_PATH):
+    """Make ``LIB_PATH`` fresh: compile ``SRC_PATH`` and ``READER_PATH``
+    unless the library is newer than both.  False where that cannot be done
+    (a source missing, or no ``g++``) - a stale library is never loaded;
+    raises when the compiler fails."""
+    srcs = (SRC_PATH, READER_PATH)
+    if not all(os.path.exists(src) for src in srcs):
         return False
-    if os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= os.path.getmtime(SRC_PATH):
+    if os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= max(
+            os.path.getmtime(src) for src in srcs):
         return True
     cxx = shutil.which("g++")
     if cxx is None:
         return False
     os.makedirs(os.path.dirname(LIB_PATH), exist_ok=True)
     tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    res = subprocess.run([cxx, *CXXFLAGS, "-shared", "-o", tmp, SRC_PATH],
+    res = subprocess.run([cxx, *CXXFLAGS, "-shared", "-o", tmp, *srcs],
                          capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
-        raise RuntimeError(f"g++ failed on {SRC_PATH} ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"g++ failed on {' '.join(srcs)} ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader sees old or new
     return True
 
@@ -95,21 +100,16 @@ def _load():
         ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p,
     ]
-    lib.nj_fasta_open.restype = ctypes.c_void_p
-    lib.nj_fasta_open.argtypes = [ctypes.c_char_p]
-    lib.nj_fasta_count.restype = ctypes.c_int64
-    lib.nj_fasta_count.argtypes = [ctypes.c_void_p]
-    lib.nj_fasta_len.restype = ctypes.c_int64
-    lib.nj_fasta_len.argtypes = [ctypes.c_void_p, ctypes.c_int64]
-    lib.nj_fasta_name.restype = ctypes.c_int64
-    lib.nj_fasta_name.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
-    ]
-    lib.nj_fasta_seq.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
-    lib.nj_fasta_seq_ptr.restype = ctypes.c_void_p
-    lib.nj_fasta_seq_ptr.argtypes = [ctypes.c_void_p, ctypes.c_int64]
-    lib.nj_fasta_codes.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
-    lib.nj_fasta_close.argtypes = [ctypes.c_void_p]
+    lib.nj_reader_open.restype = ctypes.c_void_p
+    lib.nj_reader_open.argtypes = [ctypes.c_char_p]
+    lib.nj_reader_count.restype = ctypes.c_int64
+    lib.nj_reader_count.argtypes = [ctypes.c_void_p]
+    lib.nj_reader_rows.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.nj_reader_names.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.nj_reader_seq_ptr.restype = ctypes.c_void_p
+    lib.nj_reader_seq_ptr.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.nj_reader_codes.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+    lib.nj_reader_close.argtypes = [ctypes.c_void_p]
     lib.nj_walk_chain.restype = ctypes.c_int64
     lib.nj_walk_chain.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -183,34 +183,19 @@ def read_fasta_native(path: str):
     """Parse FASTA via the C++ reader; returns list of FastaRecord."""
     from ntjoin_tpu_torch.io.fasta import FastaRecord
 
-    lib = _load()
-    if lib is None:
+    if _load() is None:
         raise RuntimeError("native library unavailable")
-    h = lib.nj_fasta_open(path.encode())
-    if not h:
-        raise FileNotFoundError(path)
-    try:
-        out = []
-        cap = 4096
-        name_buf = ctypes.create_string_buffer(cap)
-        for i in range(lib.nj_fasta_count(h)):
-            need = lib.nj_fasta_name(h, i, name_buf, cap)
-            if need >= cap:  # metadata-stuffed header: grow and re-read
-                cap = int(need) + 1
-                name_buf = ctypes.create_string_buffer(cap)
-                lib.nj_fasta_name(h, i, name_buf, cap)
-            n = lib.nj_fasta_len(h, i)
-            # single copy via string_at; latin-1 decode is a memcpy for the
-            # byte-for-byte FASTA alphabet
-            raw = ctypes.string_at(lib.nj_fasta_seq_ptr(h, i), n)
-            out.append(FastaRecord(name_buf.value.decode(), raw.decode("latin-1")))
-        return out
-    finally:
-        lib.nj_fasta_close(h)
+    with FastaSource(path) as src:
+        return [FastaRecord(name, src.seq(i)) for i, name in enumerate(src.names)]
 
 
 # Bases a probe of a record's path encodes at a time (FastaSource.clean).
 PROBE_BASES = 1 << 20
+
+
+# Columns of ``nj_reader_rows``: bases, name bytes, ``.fai`` name bytes,
+# ``.fai`` length, offset, line bases, line bytes.
+_ROW_COLS = 7
 
 
 class FastaSource:
@@ -218,22 +203,28 @@ class FastaSource:
     at a time; a context manager that closes the reader on exit.
 
     Where the native library is available (and the file is not gzipped),
-    the C++ reader (``nj_fasta_open``) holds the file's bases, one byte a
-    base, and ``codes_into`` encodes a record from them (``nj_fasta_codes``)
-    into any buffer, the pinned batch buffer included: no Python ``str`` of
-    a record is made unless ``seq`` asks for it.  Elsewhere the same
-    interface sits over ``io/fasta.py``'s Python reader.  A file the native
-    reader cannot open raises: it never switches reader.
+    the C++ reader (``nj_reader_open``, ``native/fasta_reader.cpp``) holds
+    the file's bases, one byte a base, and ``codes_into`` encodes a record
+    from them (``nj_reader_codes``) into any buffer, the pinned batch
+    buffer included: no Python ``str`` of a record is made unless ``seq``
+    asks for it.  Elsewhere the same interface sits over ``io/fasta.py``'s
+    Python reader.  A file the native reader cannot open raises: it never
+    switches reader.
 
     ``names`` (record ids), ``lengths`` (int64 bases a record) and
     ``len()`` describe the records; ``view(i)`` is record i's bytes as a
-    uint8 array, a view of the reader's buffer valid until ``close``.
+    uint8 array, a view of the reader's buffer valid until ``close``.  The
+    native reader also keeps the file's ``.fai`` rows from the same scan:
+    ``offsets``, ``line_bases`` and ``line_bytes`` (int64 a record; None
+    where the Python reader serves), and ``fai_text`` gives the index's
+    bytes; both outlive ``close``.
     """
 
     def __init__(self, path: str):
         self.path = path
         self._h = None
         self._records = None
+        self.offsets = self.line_bases = self.line_bytes = None
         lib = None if path.endswith(".gz") else _load()
         if lib is None:
             from ntjoin_tpu_torch.io.fasta import read_fasta
@@ -242,22 +233,31 @@ class FastaSource:
             self.names = [r.id for r in self._records]
             self.lengths = np.array([r.length for r in self._records], dtype=np.int64)
             return
-        h = lib.nj_fasta_open(path.encode())
+        h = lib.nj_reader_open(path.encode())
         if not h:
             raise FileNotFoundError(path)
         self._lib, self._h = lib, h
-        count = lib.nj_fasta_count(h)
-        self.lengths = np.array([lib.nj_fasta_len(h, i) for i in range(count)], dtype=np.int64)
-        self.names = []
-        cap = 4096
-        buf = ctypes.create_string_buffer(cap)
-        for i in range(count):
-            need = lib.nj_fasta_name(h, i, buf, cap)
-            if need >= cap:  # metadata-stuffed header: grow and re-read
-                cap = int(need) + 1
-                buf = ctypes.create_string_buffer(cap)
-                lib.nj_fasta_name(h, i, buf, cap)
-            self.names.append(buf.value.decode())
+        rows = np.empty((lib.nj_reader_count(h), _ROW_COLS), dtype=np.int64)
+        lib.nj_reader_rows(h, rows.ctypes.data)
+        blob = ctypes.create_string_buffer(int(rows[:, 1].sum()))
+        lib.nj_reader_names(h, blob)
+        blob, ends = blob.raw, np.cumsum(rows[:, 1]).tolist()
+        raw = [blob[a:b] for a, b in zip([0] + ends, ends)]
+        # a name ends at its first NUL, as C strings and the index's writer end it
+        self.names = [r.split(b"\0", 1)[0].decode() for r in raw]
+        self._fai_names = [r[:n].split(b"\0", 1)[0] for r, n in zip(raw, rows[:, 2].tolist())]
+        self.lengths, self._fai_lengths, self.offsets, self.line_bases, self.line_bytes = (
+            rows[:, c].copy() for c in (0, 3, 4, 5, 6))
+
+    def fai_text(self) -> bytes | None:
+        """The file's ``.fai`` index, byte for byte what ``write_fai`` writes
+        (``nj_write_fai``), from the rows the native reader kept; None where
+        the Python reader served."""
+        if self.offsets is None:
+            return None
+        cols = (self._fai_lengths, self.offsets, self.line_bases, self.line_bytes)
+        return b"".join(b"%s\t%d\t%d\t%d\t%d\n" % (name, *row)
+                        for name, *row in zip(self._fai_names, *(c.tolist() for c in cols)))
 
     def __len__(self) -> int:
         return len(self.names)
@@ -275,7 +275,7 @@ class FastaSource:
         if self._h is None and self._records is None:
             return
         if self._h is not None:
-            self._lib.nj_fasta_close(self._h)
+            self._lib.nj_reader_close(self._h)
             self._h = None
         self._records = None
         trim = getattr(ctypes.CDLL(None), "malloc_trim", None)  # glibc only
@@ -285,7 +285,7 @@ class FastaSource:
     def _ptr(self, i: int) -> int:
         if self._h is None:
             raise ValueError(f"{self.path}: the source is closed")
-        return self._lib.nj_fasta_seq_ptr(self._h, i)
+        return self._lib.nj_reader_seq_ptr(self._h, i)
 
     def view(self, i: int) -> np.ndarray:
         """Record i's bytes (uint8): a view of the reader's buffer, valid
@@ -321,7 +321,7 @@ class FastaSource:
                              f"got {out.dtype} {out.shape}")
         if self._records is None:
             self._ptr(i)  # refuse a closed source before the C++ call
-            self._lib.nj_fasta_codes(self._h, i, out.ctypes.data)
+            self._lib.nj_reader_codes(self._h, i, out.ctypes.data)
         else:
             self._encode(i, 0, out)
 

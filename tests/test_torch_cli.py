@@ -1,10 +1,13 @@
 """The port's command line against the JAX package's: byte-equal artifacts
 on synthetic fixtures (``mkt=True`` among them), the other commands
 (``help``, ``version``, ``check_install``, ``analysis``, ``quast``,
-``all``) and ``run.py``, its refusals, and the chip smoke script without a
-card."""
+``all``) and ``run.py``, its refusals, the chip smoke script without a
+card, and each input's ``.fai`` written from the sketch reader's rows (no
+second read of the file) where it can be."""
+import gzip
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -12,6 +15,7 @@ import numpy as np
 import pytest
 
 from ntjoin_tpu_torch import cli
+from ntjoin_tpu_torch.io import fasta, native
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _RC = str.maketrans("ACGT", "TGCA")
@@ -369,3 +373,111 @@ def test_chip_smoke_fails_without_cuda():
     assert res.returncode != 0
     assert "no CUDA device" in res.stderr
     assert '"ok"' not in res.stdout
+
+
+_HOST = [*_COMMON, "backend=native", "index_backend=host", "time=True"]
+
+
+def _traced(monkeypatch, capsys, d, words) -> dict:
+    """``assemble`` in this process in ``d``; its ``trace_counts``."""
+    monkeypatch.chdir(d)
+    assert cli.main(["assemble", *words]) == 0
+    return _counts(capsys.readouterr().out, "trace_counts")
+
+
+def _spy_write_fai(monkeypatch, fail: bool = False) -> list:
+    """The paths ``write_fai`` is called on, from the CLI or ``FastaStore``;
+    with ``fail`` every call raises."""
+    calls, real = [], fasta.write_fai
+
+    def spy(path, out_path=None):
+        calls.append(os.path.basename(path))
+        if fail:
+            raise AssertionError(f"{path} read again for its .fai")
+        return real(path, out_path)
+
+    monkeypatch.setattr(cli, "write_fai", spy)
+    monkeypatch.setattr(fasta, "write_fai", spy)
+    return calls
+
+
+def test_fai_comes_from_the_reader_rows(tmp_path, monkeypatch, capsys):
+    """On plain FASTAs with the native reader, ``assemble`` writes each
+    input's ``.fai`` from the rows of the sketch's own read: ``write_fai``
+    is never called, the bytes are its bytes, ``fai_rescans`` is 0."""
+    if not native.available():
+        pytest.skip("no g++ to build the native library")
+    _more_sequences(tmp_path)
+    real = fasta.write_fai
+    _spy_write_fai(monkeypatch, fail=True)
+    got = _traced(monkeypatch, capsys, tmp_path, ["-B", *_HOST, "prefix=rows"])
+    assert got["counters"]["fai_rescans"] == 0
+    assert {"fai:ref.fa", "fai:target.fa"} <= set(got["spans"])
+    for fa in ("ref.fa", "target.fa"):
+        real(str(tmp_path / fa), str(tmp_path / "want.fai"))
+        assert (tmp_path / (fa + ".fai")).read_bytes() == (tmp_path / "want.fai").read_bytes()
+
+
+def test_gzipped_input_is_read_again_for_its_fai(tmp_path, monkeypatch, capsys):
+    """A gzipped reference takes the Python reader, which keeps no rows:
+    its ``.fai`` comes from ``write_fai``, and ``fai_rescans`` counts it."""
+    if not native.available():
+        pytest.skip("no g++ to build the native library")
+    _more_sequences(tmp_path)
+    with open(tmp_path / "ref.fa", "rb") as src, gzip.open(tmp_path / "ref.fa.gz", "wb") as dst:
+        dst.write(src.read())
+    calls = _spy_write_fai(monkeypatch)
+    words = [w if w != "references=ref.fa" else "references=ref.fa.gz" for w in _HOST]
+    got = _traced(monkeypatch, capsys, tmp_path, ["-B", *words, "prefix=gz"])
+    assert got["counters"]["fai_rescans"] == 1
+    assert calls == ["ref.fa.gz"]
+
+
+def test_fresh_tsv_with_a_stale_fai_reads_the_file(tmp_path, monkeypatch, capsys):
+    """With the TSVs fresh no sketch reads the files: a missing ``.fai`` is
+    written by ``write_fai`` (``fai_rescans`` 1), the same bytes as the
+    reader's rows gave; a fresh one is left alone and not counted."""
+    if not native.available():
+        pytest.skip("no g++ to build the native library")
+    _many_contigs(tmp_path)
+    calls = _spy_write_fai(monkeypatch)
+    first = _traced(monkeypatch, capsys, tmp_path, [*_HOST, "prefix=first"])
+    assert first["counters"]["fai_rescans"] == 0 and calls == []
+    want = (tmp_path / "ref.fa.fai").read_bytes()
+    os.remove(tmp_path / "ref.fa.fai")
+    again = _traced(monkeypatch, capsys, tmp_path, [*_HOST, "prefix=again"])
+    assert again["counters"]["fai_rescans"] == 1 and calls == ["ref.fa"]
+    assert "fai:ref.fa" in again["spans"] and "fai:target.fa" not in again["spans"]
+    assert not any(name.startswith("sketch:") for name in again["spans"])
+    assert (tmp_path / "ref.fa.fai").read_bytes() == want
+
+
+def test_native_build_follows_the_reader_source(tmp_path, monkeypatch):
+    """``native.build`` compiles both sources into the library, leaves a
+    library newer than both alone, compiles again when only the port's
+    reader source is newer, and gives False without it."""
+    for name in ("SRC_PATH", "READER_PATH"):
+        copy = tmp_path / os.path.basename(getattr(native, name))
+        shutil.copy(getattr(native, name), copy)
+        monkeypatch.setattr(native, name, str(copy))
+    lib = tmp_path / "_build" / "libntjoin_native.so"
+    monkeypatch.setattr(native, "LIB_PATH", str(lib))
+    monkeypatch.setattr(native.shutil, "which", lambda name: "/usr/bin/" + name)
+    compiled = []
+
+    def fake_gxx(cmd, **kw):
+        out = cmd.index("-o") + 1
+        compiled.append(cmd[out + 1:])
+        open(cmd[out], "wb").close()
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(native.subprocess, "run", fake_gxx)
+    assert native.build() and compiled == [[native.SRC_PATH, native.READER_PATH]]
+    t = os.path.getmtime(lib)
+    for src in (native.SRC_PATH, native.READER_PATH):
+        os.utime(src, (t - 10, t - 10))
+    assert native.build() and len(compiled) == 1
+    os.utime(native.READER_PATH, (t + 10, t + 10))
+    assert native.build() and compiled[1] == compiled[0]
+    os.remove(native.READER_PATH)
+    assert native.build() is False and len(compiled) == 2

@@ -4,7 +4,8 @@ the JAX package: each record's codes against ``nthash_np.encode`` of the
 JAX reader's record, the sketch stage's TSV and ``AssemblySketch`` byte for
 byte against ``ntjoin_tpu.cli._ensure_sketch``, the batches against
 ``_batches``, the code bytes held against one batch, and the Python
-heap of the stage under ``tracemalloc``."""
+heap of the stage under ``tracemalloc``, and the ``.fai`` the reader's
+rows give against ``write_fai`` of both packages on awkward files."""
 import gzip
 import shutil
 import tracemalloc
@@ -14,11 +15,14 @@ import pytest
 import torch
 
 from ntjoin_tpu import cli as jax_cli
+from ntjoin_tpu.io import native as jax_native
 from ntjoin_tpu.io.fasta import read_fasta as jax_read_fasta
+from ntjoin_tpu.io.fasta import write_fai as jax_write_fai
 from ntjoin_tpu.ops import nthash_np as jax_np
 from ntjoin_tpu.utils.timers import StageTimers as JaxTimers
 from ntjoin_tpu_torch import cli
 from ntjoin_tpu_torch.io import native
+from ntjoin_tpu_torch.io.fasta import write_fai
 from ntjoin_tpu_torch.ops import sketch_cuda as sc
 from ntjoin_tpu_torch.ops import sketch_records as sr
 from ntjoin_tpu_torch.utils.timers import StageTimers
@@ -263,3 +267,61 @@ def test_sketch_stage_holds_under_a_byte_a_base(tmp_path, monkeypatch, backend):
     assert got.hash.shape[0] > 4000
     assert peak < bases, f"{peak} bytes on the Python heap for {bases} bases"
     assert sc.COUNTS["codes_held_max"] < peak
+
+
+# A line longer than the readers' 1 MiB read buffers.
+_LONG = 1_300_000
+
+# FASTA files whose lines are awkward for an index: each gives the same
+# records to both readers and the same .fai to every writer.
+_AWKWARD = {
+    "crlf": b">a desc\r\nACGTACGT\r\nACGTACGT\r\nACG\r\n>b\r\nTTTT\r\nTT\r\n",
+    "cr_cr_lf": b">a x\r\r\nACGT\r\r\nACGT\r\r\nAC\r\r\n>b\r\r\nGG\r\r\n>c\r\n\r\r\nA\r\n",
+    "blank_in_record": b">a\nACGT\nACGT\n\nACGT\nAC\n>b\nACGT\nA\n",
+    "blank_between_records": b">a\nACGT\nACGT\nAC\n\n>b\nACGT\nAC\n\n\n>c\nGGGG\n",
+    "short_last_line": b">a\nACGTACGT\nACGTACGT\nA\n>b\nACGTACGT\nACGTACG\n",
+    "line_longer_than_first": b">a\nACGT\nACGTACGT\nAC\n>b\nACG\nACGTA\n",
+    "empty_record": b">a\n>b\nACGT\nAC\n>c\n>d\n",
+    "description_after_space_and_tab": b">a some words\nACGT\n>b\tmore\twords\nAC\n>c \tx\nG\n",
+    "no_final_newline": b">a\nACGT\nACGT\nAC\n>b\nACGT\nACG",
+    "nul_in_line": b">a\nAC\x00T\nACGT\nA\n>b x\x00y\nACGT\n>c\x00d\nA\x00\n",
+    "line_longer_than_read_buffer": b">a\n" + b"ACGT" * (_LONG // 4) + b"\nACGT\n>" + b"b" * _LONG
+    + b" d\nACGTACGT\n" + b"T" * _LONG + b"\nAC\n",
+    "widths_change_partway": b">a\nACGTACGT\nACGTACGT\nACGT\nACGT\nAC\n>b\nACGTACGT\nACGT\n",
+}
+
+
+@pytest.mark.parametrize("case", sorted(_AWKWARD))
+def test_fai_from_reader_rows_is_write_fai(tmp_path, case):
+    """The ``.fai`` the native reader's rows give (``fai_text``) is byte for
+    byte the port's ``write_fai`` (``nj_write_fai``, a second read) and the
+    JAX package's, and the reader's records are the JAX package's native
+    reader's (``nj_fasta_open``)."""
+    if not native.available() or not jax_native.available():
+        pytest.skip("no native library on this machine")
+    fa = tmp_path / "x.fa"
+    fa.write_bytes(_AWKWARD[case])
+    port, jax = tmp_path / "port.fai", tmp_path / "jax.fai"
+    write_fai(str(fa), str(port))
+    jax_write_fai(str(fa), str(jax))
+    with native.FastaSource(str(fa)) as src:
+        text = src.fai_text()
+        got = [(name, src.seq(i)) for i, name in enumerate(src.names)]
+    assert text == port.read_bytes() == jax.read_bytes()
+    assert text.count(b"\n") == len(got) >= 2
+    assert got == [(r.id, r.seq) for r in jax_native.read_fasta_native(str(fa))]
+    rows = [line.split(b"\t") for line in text.splitlines()]
+    for col, got_col in zip((2, 3, 4), (src.offsets, src.line_bases, src.line_bytes)):
+        assert got_col.dtype == np.int64 and got_col.tolist() == [int(r[col]) for r in rows]
+
+
+def test_python_reader_keeps_no_rows(tmp_path, monkeypatch):
+    """Without the native library (and for a gzipped file) the source has
+    no rows, and ``fai_text`` says so."""
+    _write_fasta(tmp_path / "x.fa", [_UPPER[:3], _UPPER[:2]], 2)
+    _write_fasta(tmp_path / "x.fa.gz", [_UPPER[:3], _UPPER[:2]], 2)
+    with native.FastaSource(str(tmp_path / "x.fa.gz")) as src:
+        assert src.offsets is None and src.fai_text() is None and src.names == ["rec0", "rec1"]
+    monkeypatch.setattr(native, "_load", lambda: None)
+    with native.FastaSource(str(tmp_path / "x.fa")) as src:
+        assert src.line_bases is None and src.fai_text() is None and len(src) == 2
