@@ -136,6 +136,7 @@ class Scaffolder:
                 self.graph = build_graph_device(self.shared, self.device)
             else:
                 self.graph = build_graph(self.shared)
+            timers.count("graph_edges", self.graph.src.shape[0])
             if cfg.write_dot:
                 self._log("Printing graph", cfg.prefix + ".mx.dot")
                 write_dot(cfg.prefix + ".mx.dot", self.graph, self.shared)
@@ -146,7 +147,8 @@ class Scaffolder:
 
             self._log("Filtering the graph")
             min_weight = min(a.weight for a in assemblies)
-            self.graph.global_weight_filter(cfg.n, min_weight)
+            with timers.span("filter"):
+                self.graph.global_weight_filter(cfg.n, min_weight)
 
             self.mx_extremes = self.shared.target_extremes(self.target_idx)
 

@@ -32,6 +32,7 @@ from ntjoin_tpu_torch.core.assembly import SharedIndex
 from ntjoin_tpu_torch.graph.mingraph import MinimizerGraph
 from ntjoin_tpu_torch.ops.cc import connected_components
 from ntjoin_tpu_torch.ops.device_paths import escalate_filter_device, make_rank_walker
+from ntjoin_tpu_torch.utils import timers
 
 
 @dataclass
@@ -254,10 +255,11 @@ def find_paths(
     comp = components()
     ncomp = int(comp.max()) + 1 if comp.size else 0
 
-    if device is None:
-        escalating_branch_filter(graph, comp, n_min, float(weights.sum()))
-    else:
-        graph.alive = escalate_filter_device(graph, comp, n_min, float(weights.sum()), device)
+    with timers.span("branch"):
+        if device is None:
+            escalating_branch_filter(graph, comp, n_min, float(weights.sum()))
+        else:
+            graph.alive = escalate_filter_device(graph, comp, n_min, float(weights.sum()), device)
 
     sub = components()
     deg = graph.degrees()

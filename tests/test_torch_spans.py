@@ -25,9 +25,10 @@ SPANS = (
     "fai:ref.fa", "fai:target.fa", "unique:ref.fa", "unique:target.fa", "all_scaffolds",
     *(f"sketch:{fa}/{s}" for fa in ("ref.fa", "target.fa")
       for s in ("reader", "plan", "pack", "buffer", "device", "split", "tsv")),
-    *(f"scaffold/{s}" for s in ("index", "graph", "paths", "format", "emit", "emit/trim")),
+    *(f"scaffold/{s}" for s in ("index", "graph", "graph/filter", "paths", "paths/branch",
+                                "format", "emit", "emit/trim")),
 )
-COUNTERS = ("minimizers", "path_minimizers")
+COUNTERS = ("minimizers", "path_minimizers", "graph_edges")
 _RC = str.maketrans("ACGT", "TGCA")
 
 
