@@ -37,7 +37,7 @@ class ScaffoldConfig:
     btllib_t: int = 4  # accepted for CLI parity; reader threads are internal
 
     # Framework extensions (no reference counterpart)
-    keep_segments_fa: bool = False  # keep the temporary segments file
+    keep_segments_fa: bool = False  # write the masked overlap segments to <prefix>.segments.fa
     write_dot: bool = True  # emit the .mx.dot graph artifact
     verbose: bool = True
     # "device" (the default) = torch shared-index + edge tally

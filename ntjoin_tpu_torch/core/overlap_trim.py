@@ -21,7 +21,10 @@ from __future__ import annotations
 from collections import deque
 from dataclasses import dataclass
 
+import numpy as np
+
 from ntjoin_tpu_torch.core.pathnode import PathNode
+from ntjoin_tpu_torch.io.fasta import reverse_complement
 from ntjoin_tpu_torch.io.native import sketch_seq_host as sketch_seq
 
 
@@ -45,6 +48,26 @@ def valid_mask_coords(nodes: list[PathNode], k: int, w: int) -> list[tuple[int, 
     return coords
 
 
+def segment_piece(store, node: PathNode, a: int, b: int) -> str:
+    """``core[a:b]`` of a node's trim segment, fetching only those bases:
+    ``core`` is the node's oriented region (``store.subseq``'s clamped
+    range, reverse-complemented for ``-``) followed by its ``gap_size`` Ns,
+    cut to ``aligned_length``."""
+    length = store.length(node.contig)
+    start = max(0, min(node.start, length))
+    end = max(start, min(node.end, length))
+    m = end - start
+    b = min(b, node.aligned_length)
+    x, y = a, min(b, m)
+    if x >= y:
+        bases = ""
+    elif node.ori == "-":
+        bases = reverse_complement(store.subseq(node.contig, end - y, end - x))
+    else:
+        bases = store.subseq(node.contig, start + x, start + y)
+    return bases + "N" * max(0, min(b, m + node.gap_size) - max(a, m))
+
+
 def _in_valid_region(pos: int, index: int, nodes: list[PathNode]) -> bool:
     """ref ``is_in_valid_region:90-96``"""
     if index > 0 and pos < -nodes[index - 1].raw_gap_size:
@@ -52,19 +75,16 @@ def _in_valid_region(pos: int, index: int, nodes: list[PathNode]) -> bool:
     return pos >= nodes[index].aligned_length + nodes[index].raw_gap_size
 
 
-def sketch_segment(
-    seq: str, index: int, nodes: list[PathNode], k: int, w: int
+def _keep(
+    hashes: list[int], positions: list[int], index: int, nodes: list[PathNode]
 ) -> tuple[list[int], dict[int, int]]:
-    """Sketch one masked segment; keep in-valid-region, non-duplicate mx.
-
-    Returns (ordered mx list, mx -> position); semantics of reference
-    ``tally_minimizers_overlap:501-516``.
-    """
-    sk = sketch_seq(seq, k, w)
+    """In-valid-region, non-duplicate minimizers: (ordered mx list,
+    mx -> position); semantics of reference
+    ``tally_minimizers_overlap:501-516``."""
     order: list[int] = []
     info: dict[int, int] = {}
     dups: set[int] = set()
-    for h, pos in zip(sk.hashes.tolist(), sk.positions.tolist()):
+    for h, pos in zip(hashes, positions):
         if not _in_valid_region(pos, index, nodes):
             continue
         if h in info:
@@ -76,6 +96,35 @@ def sketch_segment(
         info = {h: p for h, p in info.items() if h not in dups}
         order = [h for h in order if h not in dups]
     return order, info
+
+
+def sketch_segment(
+    seq: str, index: int, nodes: list[PathNode], k: int, w: int
+) -> tuple[list[int], dict[int, int]]:
+    """Sketch one masked segment; keep in-valid-region, non-duplicate mx.
+
+    Returns (ordered mx list, mx -> position).
+    """
+    sk = sketch_seq(seq, k, w)
+    return _keep(sk.hashes.tolist(), sk.positions.tolist(), index, nodes)
+
+
+def sketch_segment_ends(
+    head: str, tail: str, lo: int, hi: int, index: int, nodes: list[PathNode], k: int, w: int
+) -> tuple[list[int], dict[int, int]]:
+    """``sketch_segment`` of the masked segment ``head + "N" * (hi - lo) +
+    tail`` (``head`` its bases before ``lo``, ``tail`` those from ``hi``),
+    sketching only the two ends.
+
+    The sketch's windows slide over valid k-mers and step over any k-mer
+    that covers an N, so one N in place of the run gives the same hashes in
+    the same order; a position past ``lo`` in the short string lies
+    ``hi - lo - 1`` further on in the masked one.
+    """
+    masked = int(hi > lo)  # hi == lo: nothing masked, the ends are the segment
+    sk = sketch_seq(head + "N" * masked + tail, k, w)
+    pos = np.where(sk.positions > lo, sk.positions + (hi - lo - masked), sk.positions)
+    return _keep(sk.hashes.tolist(), pos.tolist(), index, nodes)
 
 
 @dataclass

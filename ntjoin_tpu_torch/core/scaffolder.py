@@ -25,7 +25,8 @@ from ntjoin_tpu_torch.core.assembly import AssemblySketch, SharedIndex
 from ntjoin_tpu_torch.core.config import ScaffoldConfig
 from ntjoin_tpu_torch.core.overlap_region import OverlapRegionResolver
 from ntjoin_tpu_torch.core.overlap_trim import (
-    sketch_segment,
+    segment_piece,
+    sketch_segment_ends,
     trim_overlapping_path,
     valid_mask_coords,
 )
@@ -297,14 +298,21 @@ class Scaffolder:
     # -- overlap trimming pass (ref :468-499, 530-578) -----------------
 
     def _trim_overlaps(self, paths: list[list[PathNode]]) -> None:
-        """Streamed: each node's masked segment string lives only long
-        enough to hit the ``segments.fa`` artifact and the overlap
-        re-sketch — a single whole-genome path must never hold two copies
-        of the assembly in memory (the ~3 Gbp north-star RSS bound)."""
+        """Each node's overlap ends are fetched and sketched, and nothing
+        between them: the sketch of the two ends joined by one N is the
+        masked segment's (``sketch_segment_ends``).  The masked segments
+        are written to ``segments.fa`` only where ``keep_segments_fa``
+        keeps that file."""
         cfg = self.cfg
         seg_path = cfg.prefix + ".segments.fa"
         trim_jobs = []
-        with atomic_write(seg_path) as seg_file:
+        sketched = 0
+        with contextlib.ExitStack() as stack:
+            seg_file = (
+                stack.enter_context(atomic_write(seg_path))
+                if cfg.keep_segments_fa
+                else None
+            )
             for path in paths:
                 nodes = [n for n in path if n.ori != "?"]
                 if len(nodes) < 2:
@@ -313,26 +321,31 @@ class Scaffolder:
                 mxs: dict[int, list[int]] = {}
                 infos: dict[int, dict[int, int]] = {}
                 for ct, (node, (lo, hi)) in enumerate(zip(nodes, coords)):
-                    seq = self._segment_seq(node)
-                    # Drop exactly the appended gap Ns.  The reference
-                    # strips all terminal Ns instead (``seq.strip("Nn")``,
-                    # ntjoin_assemble.py:571-573) and its length assert
-                    # crashes whenever a region's own sequence starts/ends
-                    # with N; this slice is byte-identical on every
-                    # non-crashing input and keeps the cut-coordinate frame
-                    # on the rest.
-                    core = seq[: node.aligned_length]
-                    masked = core[:lo] + "N" * (hi - lo) + core[hi:]
-                    assert len(masked) == node.aligned_length
-                    seg_file.write(
-                        f">{node.contig}_{node.start}_{node.end} { node.raw_gap_size}\n{masked}\n"
+                    # ``core`` is the segment less exactly its appended gap
+                    # Ns.  The reference strips all terminal Ns instead
+                    # (``seq.strip("Nn")``, ntjoin_assemble.py:571-573) and
+                    # its length assert crashes whenever a region's own
+                    # sequence starts/ends with N; this frame is
+                    # byte-identical on every non-crashing input and keeps
+                    # the cut-coordinate frame on the rest.  Everything in
+                    # [lo, hi) is masked.
+                    if lo == 0 and hi >= node.aligned_length and seg_file is None:
+                        mxs[ct], infos[ct] = [], {}
+                        continue
+                    head = segment_piece(self.scaffolds, node, 0, lo)
+                    tail = segment_piece(self.scaffolds, node, hi, node.aligned_length)
+                    assert len(head) + (hi - lo) + len(tail) == node.aligned_length
+                    if seg_file is not None:
+                        seg_file.write(
+                            f">{node.contig}_{node.start}_{node.end} { node.raw_gap_size}\n"
+                            f"{head}{'N' * (hi - lo)}{tail}\n"
+                        )
+                    sketched += len(head) + len(tail)
+                    mxs[ct], infos[ct] = sketch_segment_ends(
+                        head, tail, lo, hi, ct, nodes, cfg.overlap_k, cfg.overlap_w
                     )
-                    order, info = sketch_segment(
-                        masked, ct, nodes, cfg.overlap_k, cfg.overlap_w
-                    )
-                    mxs[ct] = order
-                    infos[ct] = info
                 trim_jobs.append((nodes, mxs, infos))
+        timers.count("trim_sketch_bases", sketched)
 
         # cut-point assignment runs after every segment is sketched, like
         # the reference's whole-file Indexlr pass (ntjoin_assemble.py:468+)

@@ -12,6 +12,8 @@ from typing import TextIO
 import numpy as np
 
 from ntjoin_tpu_torch.core.pathnode import Bed
+from ntjoin_tpu_torch.io import native
+from ntjoin_tpu_torch.utils import timers
 from ntjoin_tpu_torch.utils.atomic import atomic_path, atomic_write
 
 _CONTIG_RE = re.compile(r"(\S+)([\+\-])\:(\d+)-(\d+)")
@@ -159,9 +161,7 @@ def _write_dot_native(out_path: str, graph, shared, colours) -> bool:
     strings, colour names) as unique-value tables so the byte format is
     decided here; C++ only assembles and converts decimals.
     """
-    from ntjoin_tpu_torch.io import native as _native
-
-    lib = _native._load()
+    lib = native._load()
     if lib is None:
         return False
     assemblies = shared.assemblies
@@ -227,6 +227,10 @@ def dot_colour_legend(assemblies) -> str:
     return "\n".join(lines)
 
 
+# Bytes of the TSV gathered before each write of the native formatter's.
+TSV_CHUNK = 4 << 20
+
+
 def write_minimizer_tsv(
     out_path: str, source, sketches: list, k: int, with_seq: bool = True
 ) -> None:
@@ -234,7 +238,51 @@ def write_minimizer_tsv(
     ``source`` (an ``io.native.FastaSource``: ``names`` and ``view(i)``),
     one record at a time.  Each k-mer's text is gathered from the record's
     bytes in the reader (k bytes a minimizer), so no record's ``str`` is
-    made."""
+    made.  The native library formats the lines where it is loaded
+    (``nj_format_minimizers``); elsewhere Python does, and the counter
+    ``tsv_fallback_records`` counts the records it wrote."""
+    lib = native._load()
+    if lib is None:
+        _write_minimizer_tsv_py(out_path, source, sketches, k, with_seq)
+        timers.count("tsv_fallback_records", len(source.names))
+        return
+    timers.count("tsv_fallback_records", 0)
+    token = 20 + 1 + 20 + 1 + k + 1  # the most bytes a token and its space take
+    heads = [name.encode() + b"\t" for name in source.names]
+    needs = [len(head) + len(sk.positions) * token + 1 for head, sk in zip(heads, sketches)]
+    buf = np.empty(min(TSV_CHUNK, sum(needs)), dtype=np.uint8)
+    addr, off = buf.ctypes.data, 0
+    with atomic_write(out_path, "wb") as out:
+        for i, (head, need, sk) in enumerate(zip(heads, needs, sketches)):
+            n = len(sk.positions)
+            if off + need > buf.shape[0]:
+                out.write(buf[:off])
+                off = 0
+                if need > buf.shape[0]:
+                    buf = np.empty(need, dtype=np.uint8)
+                    addr = buf.ctypes.data
+            buf[off : off + len(head)] = np.frombuffer(head, dtype=np.uint8)
+            off += len(head)
+            if n:
+                hs = np.ascontiguousarray(sk.hashes, dtype=np.uint64)
+                ps = np.ascontiguousarray(sk.positions, dtype=np.int64)
+                seq = source.view(i) if with_seq else None
+                got = lib.nj_format_minimizers(
+                    hs.ctypes.data, ps.ctypes.data, n,
+                    None if seq is None else seq.ctypes.data,
+                    0 if seq is None else seq.shape[0], k, int(with_seq), addr + off)
+                if got < 0:
+                    raise ValueError(f"{source.names[i]}: a minimizer's k-mer lies outside "
+                                     "the record")
+                off += got
+            buf[off] = ord("\n")
+            off += 1
+        out.write(buf[:off])
+
+
+def _write_minimizer_tsv_py(out_path: str, source, sketches: list, k: int,
+                            with_seq: bool) -> None:
+    """``write_minimizer_tsv``'s lines formatted in Python."""
     with atomic_write(out_path) as out:
         for i, (name, sk) in enumerate(zip(source.names, sketches)):
             pos = sk.positions.tolist()

@@ -110,6 +110,11 @@ def _load():
     lib.nj_reader_seq_ptr.argtypes = [ctypes.c_void_p, ctypes.c_int64]
     lib.nj_reader_codes.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
     lib.nj_reader_close.argtypes = [ctypes.c_void_p]
+    lib.nj_format_minimizers.restype = ctypes.c_int64
+    lib.nj_format_minimizers.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
     lib.nj_walk_chain.restype = ctypes.c_int64
     lib.nj_walk_chain.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -224,6 +229,7 @@ class FastaSource:
         self.path = path
         self._h = None
         self._records = None
+        self._bases = None  # (address, uint8 array) of the reader's buffer, made by view
         self.offsets = self.line_bases = self.line_bytes = None
         lib = None if path.endswith(".gz") else _load()
         if lib is None:
@@ -277,6 +283,7 @@ class FastaSource:
         if self._h is not None:
             self._lib.nj_reader_close(self._h)
             self._h = None
+            self._bases = None
         self._records = None
         trim = getattr(ctypes.CDLL(None), "malloc_trim", None)  # glibc only
         if trim is not None:
@@ -292,8 +299,16 @@ class FastaSource:
         until the source closes."""
         if self._records is not None:
             return np.frombuffer(self._records[i].seq.encode("latin-1"), dtype=np.uint8)
-        n = int(self.lengths[i])
-        return np.frombuffer((ctypes.c_char * n).from_address(self._ptr(i)), dtype=np.uint8)
+        start = self._ptr(i)
+        if self._bases is None:
+            # the reader keeps the records' bases back to back in one buffer:
+            # one array over all of it, so that a record's view is a slice
+            # and not a ctypes array type of its own length
+            first, last = self._ptr(0), self._ptr(len(self) - 1) + int(self.lengths[-1])
+            self._bases = (first, np.frombuffer((ctypes.c_char * (last - first)).from_address(
+                first), dtype=np.uint8))
+        first, bases = self._bases
+        return bases[start - first : start - first + int(self.lengths[i])]
 
     def seq(self, i: int) -> str:
         """Record i's text, made when asked."""

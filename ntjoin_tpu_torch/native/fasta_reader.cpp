@@ -11,9 +11,13 @@
 // header with every trailing '\r' off, the bases of the lines with every
 // trailing '\r' off, the offset of the first base, and the bases and bytes
 // of a line, 0 and 0 where the lines are not uniform.
+//
+// nj_format_minimizers writes one record's minimizers as the text of its
+// line of the minimizer TSV (emit/writers.py write_minimizer_tsv).
 
 #include <sys/stat.h>
 
+#include <charconv>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -219,5 +223,28 @@ void nj_reader_codes(void* h, int64_t i, uint8_t* out) {
 }
 
 void nj_reader_close(void* h) { delete (Reader*)h; }
+
+// One record's minimizer tokens, "hash:pos" or, with with_seq, "hash:pos:kmer"
+// (the k bytes of seq from pos, as they are), joined by single spaces into
+// out, which holds at least n * (20 + 1 + 20 + 1 + k + 1) bytes.  The hash
+// is written unsigned and the position signed, in decimal.  Returns the
+// bytes written, or -1 where a k-mer would lie outside seq's len bytes.
+int64_t nj_format_minimizers(const uint64_t* hashes, const int64_t* pos, int64_t n,
+                             const char* seq, int64_t len, int k, int with_seq, char* out) {
+  char* o = out;
+  for (int64_t j = 0; j < n; ++j) {
+    if (j) *o++ = ' ';
+    o = std::to_chars(o, o + 20, hashes[j]).ptr;
+    *o++ = ':';
+    o = std::to_chars(o, o + 20, pos[j]).ptr;
+    if (with_seq) {
+      if (pos[j] < 0 || pos[j] > len - k) return -1;
+      *o++ = ':';
+      memcpy(o, seq + pos[j], (size_t)k);
+      o += k;
+    }
+  }
+  return o - out;
+}
 
 }  // extern "C"

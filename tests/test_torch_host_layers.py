@@ -776,6 +776,34 @@ def test_overlap_trim(pipes, scenario):
     assert any(n["start_adjust"] or n["end_adjust"] for n in trimmed)
 
 
+@pytest.mark.parametrize("keep", [True, False])
+def test_trim_overlaps_matches_jax_package(pipes, scenario, tmp_path, keep):
+    """``Scaffolder._trim_overlaps`` of both packages on the same paths: the
+    same cut points, and with ``keep_segments_fa`` the same ``segments.fa``
+    bytes (the port sketches only the overlap ends; the JAX package the
+    whole masked segments it writes)."""
+    got, segs = [], []
+    for pkg in PKGS:
+        cfg = mod(pkg, "core.config").ScaffoldConfig(
+            target="t.tsv", references=["r.tsv"], reference_weights=[2.0],
+            prefix=str(tmp_path / pkg), overlap=True, keep_segments_fa=keep, verbose=False)
+        cls = mod(pkg, "core.scaffolder").Scaffolder
+        s = cls(cfg, device="cpu") if pkg == PORT else cls(cfg)
+        s.scaffolds = mod(pkg, "io.fasta").FastaStore(str(scenario / "target.fa"))
+        paths = copy.deepcopy(pipes[pkg]["merged"])
+        try:
+            s._trim_overlaps(paths)
+        finally:
+            s.scaffolds.close()
+        got.append(norm(paths))
+        seg = tmp_path / f"{pkg}.segments.fa"
+        assert seg.exists() == keep
+        segs.append(seg.read_bytes() if keep else None)
+    assert got[0] == got[1]
+    assert segs[0] == segs[1]
+    assert any(n["start_adjust"] or n["end_adjust"] for p in got[1] for n in p)
+
+
 # -- emit -----------------------------------------------------------------------------------
 
 

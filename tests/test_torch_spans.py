@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from ntjoin_tpu_torch import cli
+from ntjoin_tpu_torch.io import native
 from ntjoin_tpu_torch.ops import sketch_records
 from ntjoin_tpu_torch.utils import timers
 
@@ -28,7 +29,8 @@ SPANS = (
     *(f"scaffold/{s}" for s in ("index", "graph", "graph/filter", "paths", "paths/branch",
                                 "format", "emit", "emit/trim")),
 )
-COUNTERS = ("minimizers", "path_minimizers", "graph_edges")
+COUNTERS = ("minimizers", "path_minimizers", "graph_edges", "trim_sketch_bases",
+            "tsv_fallback_records")
 _RC = str.maketrans("ACGT", "TGCA")
 
 
@@ -246,6 +248,9 @@ def test_trace_counts_name_every_span_and_counter(traced):
            for ln in p.read_text().splitlines()]
     assert counters["minimizers"] == sum(map(len, tsv))
     assert 0 < counters["path_minimizers"] < counters["minimizers"]
+    # the overlap trim sketches only the ends of the 60 kbp target's pieces
+    assert 0 < counters["trim_sketch_bases"] < 60_000 // 4
+    assert counters["tsv_fallback_records"] == (0 if native.available() else 13)
 
 
 def test_child_spans_within_their_stage(traced):
