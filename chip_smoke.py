@@ -108,17 +108,14 @@ E. mesh     parallel/mesh.py sketch_records_sharded over [cuda:0]*4 and
 F. dist     run inside phase 8's work directory: `assemble backend=cuda
             n_procs=2 local_devices=2` as two processes on the one card
             (gloo), every artifact byte-equal to phase 8's card run in a
-            directory of its own; each process's counts line (kernels on
-            cuda:0, bytes sent by exchange, the verdict's time on the card);
+            directory of its own; each process's counters (kernels on the
+            card, bytes sent by exchange, the verdict's time on the card);
             the hash-bucket verdict over the three assemblies' streams
             bit-equal to the replicated one on the card
-G. bench    `python -m ntjoin_tpu_torch.bench --quick` in a process of its
-            own: the parity gate, the fused cell at w=1000, the 30 Mbp
-            cell once on each backend with every artifact byte-equal, the
-            device idle share of that assemble and the scaling proxy at 4
-            Mbp; its detail and headline lines forwarded; it fails on a
-            non-zero exit, a missing headline key, no artifact compared or
-            an idle share outside [0, 1]
+
+Every count checked is a counter of ntjoin_tpu_torch/utils/timers.py: read
+from the port's `trace_counts` line where it runs in a process of its own,
+and from `timers.COUNTERS` after a `timers.recording(True)` block here.
 
 The last three lines are the kernels' JSON record (with the general path's
 launches and times from phase A's run where a kernel runs on it, and the
@@ -127,6 +124,7 @@ launches of phases E and F), the card's name and power limit, and
 """
 from __future__ import annotations
 
+import collections
 import filecmp
 import json
 import os
@@ -140,7 +138,7 @@ import time
 import numpy as np
 import torch
 
-from ntjoin_tpu_torch import bench, kernel_prof, split_bench
+from ntjoin_tpu_torch import kernel_prof, split_bench
 from ntjoin_tpu_torch.core import orientation
 from ntjoin_tpu_torch.core.assembly import AssemblySketch, SharedIndex
 from ntjoin_tpu_torch.dryrun import dryrun_multichip
@@ -157,6 +155,7 @@ from ntjoin_tpu_torch.ops.nthash_np import sketch_codes
 from ntjoin_tpu_torch.parallel import distributed as pd
 from ntjoin_tpu_torch.parallel import mesh as pm
 from ntjoin_tpu_torch.parallel import pipeline as pp
+from ntjoin_tpu_torch.utils import timers
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 K, W = 32, 1000
@@ -192,6 +191,20 @@ def say(*parts) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
+
+
+GRAPH_OPS = ("shared_filter", "edge_tally", "cc", "escalate", "rank")
+
+
+def counters(c: dict | None = None) -> collections.Counter:
+    """The counters ``c``, by default those of the last
+    ``timers.recording(True)`` block; 0 for a name not counted."""
+    return collections.Counter(timers.COUNTERS if c is None else c)
+
+
+def _plain_calls(c: collections.Counter) -> int:
+    """Calls of the ops' plain versions among the counters ``c``."""
+    return sum(n for name, n in c.items() if name.startswith("launch:") and name.endswith("_plain"))
 
 
 def card() -> str:
@@ -481,10 +494,11 @@ def kernels() -> dict[str, dict]:
     say(_flag_line(_flag_times(val, L, W_LONG, off), f"w={W_LONG}, C={C} chunks of L={L}"))
     cap = sc._slot_cap(L, W_LONG)
     want = sc.window_emit_ref(h, flags, L, W_LONG, off, cap)
-    sc.reset_counts()
-    _compare(f"window_emit (w={W_LONG})", sc.window_emit(h, flags, L, W_LONG, off, cap), want)
-    if sc.emit_tile(W_LONG) != 1 or sc.COUNTS["window_emit"] != 1 or sc.COUNTS["window_emit_gmem"]:
-        fail(f"w={W_LONG} did not take the one-chunk tiles: {sc.COUNTS}")
+    with timers.recording(True):
+        _compare(f"window_emit (w={W_LONG})", sc.window_emit(h, flags, L, W_LONG, off, cap), want)
+    c = counters()
+    if sc.emit_tile(W_LONG) != 1 or c["launch:window_emit"] != 1 or c["launch:window_emit_gmem"]:
+        fail(f"w={W_LONG} did not take the one-chunk tiles: {dict(c)}")
     _compare(f"window_emit (device-memory route, w={W_LONG})",
              sc._window_emit_gmem(h, flags, L, W_LONG, off, cap), want)
     del want
@@ -507,12 +521,13 @@ def kernels() -> dict[str, dict]:
     flags, _ = _flags(val, L, W_GMEM, off, f"w={W_GMEM}")
     say(_flag_line(_flag_times(val, L, W_GMEM, off), f"w={W_GMEM}, C={C} chunks of L={L}"))
     cap = sc._slot_cap(L, W_GMEM)
-    sc.reset_counts()
-    err = _compare(f"window_emit_gmem (w={W_GMEM})",
-                   sc.window_emit(h, flags, L, W_GMEM, off, cap),
-                   sc.window_emit_ref(h, flags, L, W_GMEM, off, cap))
-    if sc.emit_tile(W_GMEM) or sc.COUNTS["window_emit_gmem"] != 1 or sc.COUNTS["window_emit"]:
-        fail(f"w={W_GMEM} did not take the device-memory route: {sc.COUNTS}")
+    with timers.recording(True):
+        err = _compare(f"window_emit_gmem (w={W_GMEM})",
+                       sc.window_emit(h, flags, L, W_GMEM, off, cap),
+                       sc.window_emit_ref(h, flags, L, W_GMEM, off, cap))
+    c = counters()
+    if sc.emit_tile(W_GMEM) or c["launch:window_emit_gmem"] != 1 or c["launch:window_emit"]:
+        fail(f"w={W_GMEM} did not take the device-memory route: {dict(c)}")
     ms = min(_time_ms(lambda: sc.window_emit(h, flags, L, W_GMEM, off, cap), 5),
              _time_ms(lambda: sc.window_emit(h, flags, L, W_GMEM, off, cap), 5))
     plain_ms = _time_ms(lambda: sc.window_emit_ref(h, flags, L, W_GMEM, off, cap), 1)
@@ -536,11 +551,12 @@ def kernels() -> dict[str, dict]:
         h, val = sc.hash_chunked(flat, L, C, rows, K)
         flags, _ = _flags(val, L, w, off, f"w={w}, {small.shape[0]} bases")
         cap = sc._slot_cap(L, w)
-        sc.reset_counts()
-        _compare(f"window_emit (w={w})", sc.window_emit(h, flags, L, w, off, cap),
-                 sc.window_emit_ref(h, flags, L, w, off, cap))
-        if sc.emit_tile(w) != tile or sc.COUNTS["window_emit"] != 1:
-            fail(f"w={w} did not take the shared-memory route in tiles of {tile}: {sc.COUNTS}")
+        with timers.recording(True):
+            _compare(f"window_emit (w={w})", sc.window_emit(h, flags, L, w, off, cap),
+                     sc.window_emit_ref(h, flags, L, w, off, cap))
+        c = counters()
+        if sc.emit_tile(w) != tile or c["launch:window_emit"] != 1:
+            fail(f"w={w} did not take the shared-memory route in tiles of {tile}: {dict(c)}")
         say(f"   flags and window_emit at w={w}, {small.shape[0]} bases: tiles of {tile} "
             f"chunks, bit-equal")
         if w in (10, 4243):  # a short and an odd window
@@ -554,11 +570,12 @@ def kernels() -> dict[str, dict]:
         h, val = sc.hash_chunked(flat, L, C, rows, K)
         flags, _ = _flags(val, L, w, off, f"w={w}, {small.shape[0]} bases")
         cap = sc._slot_cap(L, w)
-        sc.reset_counts()
-        _compare(f"window_emit_gmem (w={w})", sc.window_emit(h, flags, L, w, off, cap),
-                 sc.window_emit_ref(h, flags, L, w, off, cap))
-        if sc.emit_tile(w) or sc.COUNTS["window_emit_gmem"] != 1 or sc.COUNTS["window_emit"]:
-            fail(f"w={w} did not take the device-memory route: {sc.COUNTS}")
+        with timers.recording(True):
+            _compare(f"window_emit_gmem (w={w})", sc.window_emit(h, flags, L, w, off, cap),
+                     sc.window_emit_ref(h, flags, L, w, off, cap))
+        c = counters()
+        if sc.emit_tile(w) or c["launch:window_emit_gmem"] != 1 or c["launch:window_emit"]:
+            fail(f"w={w} did not take the device-memory route: {dict(c)}")
         ms = _time_ms(lambda: sc.window_emit(h, flags, L, w, off, cap), 5)
         say(f"   flags and window_emit_gmem at w={w}, {small.shape[0]} bases: C={C} chunks of "
             f"L={L}, {_gmem_launch(C, w)}, bit-equal; {ms:.3f} ms"
@@ -645,12 +662,12 @@ def _peak_bytes(fn):
     return out, torch.cuda.max_memory_allocated() - before
 
 
-def _flags_counted(counts: dict) -> None:
+def _flags_counted(c: collections.Counter) -> None:
     """Every device batch launches the hash kernel once and the flag
     kernel's passes."""
-    if (counts["flags"] < 1 or counts["flags"] != sc.FLAG_LAUNCHES * counts["hash"]
-            or counts["flags_plain"]):
-        fail(f"a device batch went round the flag kernel: {counts}")
+    if (c["launch:flags"] < 1 or c["launch:flags"] != sc.FLAG_LAUNCHES * c["launch:hash"]
+            or c["launch:flags_plain"]):
+        fail(f"a device batch went round the flag kernel: {dict(c)}")
 
 
 def sketch() -> int:
@@ -668,25 +685,27 @@ def sketch() -> int:
         recs = sub
     oracle = "native C++ sketcher" if native.available() else "nthash_np.sketch_codes"
     bases = sum(c.shape[0] for c in recs)
-    sc.reset_counts()
     t0 = time.monotonic()
-    got, peak = _peak_bytes(lambda: sr.sketch_records_torch(recs, K, W, "cuda"))
+    with timers.recording(True):
+        got, peak = _peak_bytes(lambda: sr.sketch_records_torch(recs, K, W, "cuda"))
     wall = time.monotonic() - t0
+    c = counters()
     _same(got, recs, "sketch")
     say(f"== sketch: {len(recs)} records, {bases} bases in {wall:.3f} s; equal to the "
-        f"{oracle}; counts {json.dumps(sc.COUNTS)}")
+        f"{oracle}; counts {json.dumps(c)}")
     say(f"   peak device memory of the batch {peak} bytes, {peak / bases:.2f} a base")
-    if sc.COUNTS["host_records"]:
+    if c["sketch_route:host_records"]:
         fail("a record took the host sketcher")
-    _flags_counted(sc.COUNTS)
+    _flags_counted(c)
     small = recs[-12:]
-    sc.reset_counts()
-    got = sr.sketch_records_torch(small, K, W, "cuda", slot_cap=2)
+    with timers.recording(True):
+        got = sr.sketch_records_torch(small, K, W, "cuda", slot_cap=2)
+    c = counters()
     _same(got, small, "forced overflow")
-    if sc.COUNTS["exact_runs"] < 1 or sc.COUNTS["window"] < 1:
-        fail(f"slot_cap=2 did not take the exact path: {sc.COUNTS}")
-    _flags_counted(sc.COUNTS)
-    say(f"   forced overflow (slot_cap=2): exact through kernel 3, counts {json.dumps(sc.COUNTS)}")
+    if c["sketch_route:exact_runs"] < 1 or c["launch:window"] < 1:
+        fail(f"slot_cap=2 did not take the exact path: {dict(c)}")
+    _flags_counted(c)
+    say(f"   forced overflow (slot_cap=2): exact through kernel 3, counts {json.dumps(c)}")
     long_w, acc = [], 0
     for c in recs:
         if acc < 1 << 24:
@@ -695,22 +714,22 @@ def sketch() -> int:
     gmem = 0
     for w, route, other in ((W_LONG, "window_emit", "window_emit_gmem"),
                             (W_GMEM, "window_emit_gmem", "window_emit")):
-        sc.reset_counts()
-        got = sr.sketch_records_torch(long_w, K, w, "cuda")
-        counts = dict(sc.COUNTS)
+        with timers.recording(True):
+            got = sr.sketch_records_torch(long_w, K, w, "cuda")
+        c = counters()
         _same(got, long_w, f"w={w}", w)
-        if counts[route] < 1 or counts[other] or counts["host_records"]:
-            fail(f"w={w} did not go through {route}: {counts}")
-        _flags_counted(counts)
+        if c["launch:" + route] < 1 or c["launch:" + other] or c["sketch_route:host_records"]:
+            fail(f"w={w} did not go through {route}: {dict(c)}")
+        _flags_counted(c)
         say(f"   w={w}: {len(long_w)} records, {acc} bases, equal to the {oracle}; "
-            f"counts {json.dumps(counts)}")
-        gmem = counts["window_emit_gmem"]
+            f"counts {json.dumps(c)}")
+        gmem = c["launch:window_emit_gmem"]
     return gmem
 
 
 def prof() -> dict[str, int]:
     """Phase 6: the per-stage profiler in a process of its own; returns its
-    launch counts."""
+    counters."""
     t0 = time.monotonic()
     res = subprocess.run([sys.executable, "-m", "ntjoin_tpu_torch.kernel_prof"], cwd=REPO,
                          env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
@@ -797,17 +816,17 @@ def graph(n_mx: int = 2_000_000, device: str = "cuda") -> None:
     min_w = min(a.weight for a in asms)
 
     def port():
-        di.reset_counts()
-        shared, t_index = _timed(lambda: di.shared_index_device(asms, device))
-        g, t_graph = _timed(lambda: di.build_graph_device(shared, device))
-        comp, t_cc = _timed(g.components)
-        g.global_weight_filter(n_min, min_w)
-        (paths, ncomp), t_paths = _timed(lambda: find_paths(g, shared, n_min, device))
+        with timers.recording(True):
+            shared, t_index = _timed(lambda: di.shared_index_device(asms, device))
+            g, t_graph = _timed(lambda: di.build_graph_device(shared, device))
+            comp, t_cc = _timed(g.components)
+            g.global_weight_filter(n_min, min_w)
+            (paths, ncomp), t_paths = _timed(lambda: find_paths(g, shared, n_min, device))
         return (shared, g, comp, paths, ncomp), (t_index, t_graph, t_cc, t_paths)
 
     port()  # first use of each torch op on the card
     (shared, g, comp, paths, ncomp), port_s = port()
-    counts = di.counts_report()
+    counts = counters()
     (host, t_index) = _timed(lambda: SharedIndex(asms))
     hg, t_graph = _timed(lambda: build_graph(host))
     hcomp, t_cc = _timed(hg.components)
@@ -832,9 +851,9 @@ def graph(n_mx: int = 2_000_000, device: str = "cuda") -> None:
     if ncomp != hncomp or [p for p, _ in paths] != [p for p, _ in hpaths]:
         fail(f"graph: paths differ ({len(paths)} vs {len(hpaths)}, {ncomp} vs {hncomp} "
              "components)")
-    for op in di.GRAPH_OPS:
-        if counts[op]["launches"] < 1 or counts[op]["device"] != torch.device(device).type:
-            fail(f"graph: op {op} did not run on the GPU: {counts}")
+    for op in GRAPH_OPS:
+        if counts[f"graph:{op}@{torch.device(device).type}"] < 1:
+            fail(f"graph: op {op} did not run on the GPU: {dict(counts)}")
     lens = sorted((len(p) for p, _ in paths), reverse=True)
     say(f"   equal: {shared.num_nodes} nodes, {g.src.shape[0]} edges, {ncomp} components, "
         f"{len(paths)} paths (longest {lens[:3]} nodes), {branch} branch nodes before "
@@ -880,16 +899,16 @@ def _kernel_split(fn, top: int = 10) -> str:
         f"{k} x{n} {ms:.3f} ms" for k, n, ms in rows[:top])
 
 
-def _counted_route(counts: dict, w: int, what: str) -> None:
+def _counted_route(c: collections.Counter, w: int, what: str) -> None:
     """The batches launched the hash, flag and window/emission kernels of
     their route, a general batch also the compaction kernel, no plain
     version, and the host sketched nothing."""
     route = "window_emit" if sc.emit_tile(w) else "window_emit_gmem"
-    if (counts["hash"] < 1 or counts["flags"] != sc.FLAG_LAUNCHES * counts["hash"]
-            or counts[route] < 1
-            or (counts["general_batches"] and counts["stream"] < 4) or counts["host_records"]
-            or any(counts[f"{op}_plain"] for op in sc._OPS)):
-        fail(f"{what}: the general path did not run on its kernels: {counts}")
+    if (c["launch:hash"] < 1 or c["launch:flags"] != sc.FLAG_LAUNCHES * c["launch:hash"]
+            or c["launch:" + route] < 1
+            or (c["sketch_route:general_batches"] and c["launch:stream"] < 4)
+            or c["sketch_route:host_records"] or _plain_calls(c)):
+        fail(f"{what}: the general path did not run on its kernels: {dict(c)}")
 
 
 def draft_scaffolds() -> tuple[list[np.ndarray], int]:
@@ -912,24 +931,25 @@ def general() -> dict[str, dict]:
         f"{runs} more N runs of 50-500 bp every 2-8 kbp")
     out = {}
     for w in (W, W_LONG):
-        sc.reset_counts()
         t0 = time.monotonic()
-        got, peak = _peak_bytes(lambda: sr.sketch_records_torch(recs, K, w, "cuda"))
+        with timers.recording(True):
+            got, peak = _peak_bytes(lambda: sr.sketch_records_torch(recs, K, w, "cuda"))
         wall = time.monotonic() - t0
-        counts = dict(sc.COUNTS)
+        counts = counters()
         _same(got, recs, f"general path, w={w}", w)
-        if counts["general_records"] != len(recs) or counts["general_batches"] != 1:
-            fail(f"w={w}: the records did not take the general path in one batch: {counts}")
+        if (counts["sketch_route:general_records"] != len(recs)
+                or counts["sketch_route:general_batches"] != 1):
+            fail(f"w={w}: the records did not take the general path in one batch: "
+                 f"{dict(counts)}")
         _counted_route(counts, w, f"w={w}")
         say(f"   w={w}: sketch_records_torch {wall:.3f} s, equal to the host sketcher record by "
             f"record; peak device memory {peak} bytes, {peak / bases:.2f} a base; counts "
             f"{json.dumps(counts)}")
         if w == W:
-            if counts["window"] < 1:
+            if counts["launch:window"] < 1:
                 fail(f"w={w}: no chunk of the stream overflowed, the exact kernel did not run")
-            launches = {name: counts[name]
+            launches = {name: counts["launch:" + name]
                         for name in ("hash", "stream", "flags", "window_emit", "window")}
-            sc.reset_counts()
             _same(sr.sketch_records_torch(recs, K, w, "cuda", slot_cap=2), recs,
                   f"general path, slot_cap=2, w={w}", w)
             say(f"   w={w}, slot_cap=2 (an equality check only): equal to the host sketcher")
@@ -1075,13 +1095,14 @@ def bound_records() -> None:
             _sparse_gaps(rng, c)
         path = "general" if general else "fused"
         torch.cuda.empty_cache()
-        sc.reset_counts()
         t0 = time.monotonic()
-        (got,), peak = _peak_bytes(lambda: sr.sketch_records_torch([c], K, W, "cuda"))
+        with timers.recording(True):
+            (got,), peak = _peak_bytes(lambda: sr.sketch_records_torch([c], K, W, "cuda"))
         wall = time.monotonic() - t0
-        counts = dict(sc.COUNTS)
-        if counts["host_records"] or counts["general_records"] != int(general):
-            fail(f"bound: the {n}-base record did not take the {path} path: {counts}")
+        counts = counters()
+        if (counts["sketch_route:host_records"]
+                or counts["sketch_route:general_records"] != int(general)):
+            fail(f"bound: the {n}-base record did not take the {path} path: {dict(counts)}")
         t0 = time.monotonic()
         want = _oracle(c, W)
         host_s = time.monotonic() - t0
@@ -1131,14 +1152,14 @@ def _equal(got, want, what: str) -> None:
             fail(f"{what}: record {i} differs from the host sketcher")
 
 
-def _mesh_counted(counts: dict, mesh_counts: dict, tiles: int, general: bool, what: str) -> None:
+def _mesh_counted(c: collections.Counter, tiles: int, general: bool, what: str) -> None:
     """Every tile went into a device batch that launched the hash, flag and
     window/emission kernels; none to the host, no plain version."""
-    if (mesh_counts["tiles"] != tiles or counts["host_records"]
-            or counts["general_records"] != (tiles if general else 0)):
+    if (c["mesh:tiles"] != tiles or c["sketch_route:host_records"]
+            or c["sketch_route:general_records"] != (tiles if general else 0)):
         fail(f"{what}: the tiles did not all take the card's {'general' if general else 'fused'} "
-             f"path: mesh {mesh_counts}, sketch {counts}")
-    _counted_route(counts, W, what)
+             f"path: {dict(c)}")
+    _counted_route(c, W, what)
 
 
 def mesh_phase(smi: str) -> dict[str, int]:
@@ -1171,21 +1192,20 @@ def mesh_phase(smi: str) -> dict[str, int]:
         single_s = time.monotonic() - t0
         _equal(single, want, f"mesh ({name}): the single-device sketch")
         for n_shards in (4, 3):
-            sc.reset_counts()
-            pm.reset_counts()
             t0 = time.monotonic()
-            got = pm.sketch_records_sharded(recs, K, W, ["cuda:0"] * n_shards)
+            with timers.recording(True):
+                got = pm.sketch_records_sharded(recs, K, W, ["cuda:0"] * n_shards)
             wall = time.monotonic() - t0
-            counts, mesh_counts = dict(sc.COUNTS), dict(pm.COUNTS)
+            counts = counters()
             _equal(got, want, f"mesh ({name}, {n_shards} shards)")
-            _mesh_counted(counts, mesh_counts, n_shards * len(recs), general,
+            _mesh_counted(counts, n_shards * len(recs), general,
                           f"mesh ({name}, {n_shards} shards)")
             for k in MESH_KERNELS:
-                launches[k] += counts[k]
+                launches[k] += counts["launch:" + k]
             say(f"   {name}, {n_shards} shards of cuda:0: equal to the single-device sketch and "
                 f"the host sketcher ({sum(g.positions.shape[0] for g in got)} minimizers); "
                 f"sharded {wall:.3f} s, single-device {single_s:.3f} s, host {host_s:.3f} s "
-                f"({smi}); mesh {json.dumps(mesh_counts)}; sketch {json.dumps(counts)}")
+                f"({smi}); counts {json.dumps(counts)}")
         if name == "chr1":
             h = got[0].hashes
             per = -(-h.shape[0] // 4)
@@ -1229,7 +1249,7 @@ def distributed_phase(work: str, args: list[str]) -> dict[str, int]:
     """Phase F: ``assemble backend=cuda n_procs=2 local_devices=2`` as two
     processes on the one card, in a directory of its own beside phase 8's
     card run (``work/port``), whose artifacts it must give byte for byte;
-    each process's counts line; then the hash-bucket verdict over the three
+    each process's counters; then the hash-bucket verdict over the three
     assemblies' streams on the card against the replicated one.  Returns the
     kernels' launches summed over both processes."""
     port, dist = os.path.join(work, "port"), os.path.join(work, "dist")
@@ -1256,21 +1276,20 @@ def distributed_phase(work: str, args: list[str]) -> dict[str, int]:
         f"wall {wall:.3f} s for both")
     launches = dict.fromkeys(MESH_KERNELS, 0)
     for pid, (out, _) in enumerate(outs):
-        c = _counts_line(out, "dist_counts")
-        sk = c["sketch_counts"]
-        a2a = [b for op, b in c["exchanges"] if op == "all_to_all"]
-        if (c["device"] != "cuda:0" or c["process_id"] != pid or c["n_shards"] != 4
-                or sk["host_records"] or any(sk[f"{op}_plain"] for op in sc._OPS)
-                or sk["hash"] < 1 or sk["flags"] != sc.FLAG_LAUNCHES * sk["hash"]
-                or sk["window_emit"] < 1
-                or len(a2a) != 2 or min(a2a) <= 0 or not c["verdict_ms"]):
-            fail(f"distributed: process {pid} did not sketch on the card's kernels, exchange "
-                 f"and judge on the card: {c}")
+        c = counters(_counts_line(out, "trace_counts")["counters"])
+        if (c["dist:shards@cuda"] != 4 or c["sketch_route:host_records"] or _plain_calls(c)
+                or c["launch:hash"] < 1 or c["launch:flags"] != sc.FLAG_LAUNCHES * c["launch:hash"]
+                or c["launch:window_emit"] < 1
+                or c["dist:exchanges:all_to_all"] != 2 or c["dist:exchange_bytes:all_to_all"] <= 0
+                or "dist:verdict_us" not in c):
+            fail(f"distributed: process {pid} did not hold 4 shards on the card, sketch on the "
+                 f"card's kernels, exchange and judge on the card: {dict(c)}")
         for k in MESH_KERNELS:
-            launches[k] += sk[k]
-        say(f"   process {pid}: {c['records']} records, {c['entries']} minimizers, "
-            f"{c['survivors']} survive; bytes sent by exchange {c['exchanges']}; verdict on the "
-            f"card {', '.join(f'{t:.3f}' for t in c['verdict_ms'])} ms; sketch {json.dumps(sk)}")
+            launches[k] += c["launch:" + k]
+        say(f"   process {pid}: {c['dist:records']} records, {c['dist:entries']} minimizers, "
+            f"{c['dist:survivors']} survive; bytes sent by 2 exchanges "
+            f"{c['dist:exchange_bytes:all_to_all']}; verdict on the card "
+            f"{c['dist:verdict_us'] / 1e3:.3f} ms; counts {json.dumps(c)}")
     made = [f for f in sorted(os.listdir(dist)) if not f.endswith(".fa") or "scaffolds" in f]
     for f in ("e2e.path", "e2e.agp", "e2e.mx.dot",
               *(f"target.fa.k{K}.w{W}.n2.{p}.scaffolds.fa" for p in ("assigned", "unassigned",
@@ -1291,51 +1310,20 @@ def distributed_phase(work: str, args: list[str]) -> dict[str, int]:
     rows = [torch.from_numpy(pp._pack_rows(x, fill, 4, width)).cuda()
             for x, fill in ((h, 0), (asm, -1), (np.ones(h.shape[0], bool), False))]
     bw = pd.bucket_width_for_rows(rows[0].cpu().numpy(), rows[2].cpu().numpy(), 4)
-    pd.reset_counts()
-    sharded = pd.distributed_survive_sharded(*rows, 3, bw).reshape(-1)
-    replicated = pd.distributed_survive(*rows, 3)
+    with timers.recording(True):
+        sharded = pd.distributed_survive_sharded(*rows, 3, bw).reshape(-1)
+    sharded_ms = timers.COUNTERS["dist:verdict_us"] / 1e3
+    with timers.recording(True):
+        replicated = pd.distributed_survive(*rows, 3)
+    replicated_ms = timers.COUNTERS["dist:verdict_us"] / 1e3
     if not torch.equal(sharded, replicated):
         fail(f"distributed: sharded and replicated verdicts differ in "
              f"{int((sharded != replicated).sum())} entries")
     say(f"   the hash-bucket verdict over the three streams ({h.shape[0]} minimizers, 4 shards "
         f"of {width}, buckets of {bw}) bit-equal to the replicated one on the card; "
-        f"{int(sharded.sum())} survive; verdict {pd.COUNTS['verdict_ms'][0]:.3f} ms sharded, "
-        f"{pd.COUNTS['verdict_ms'][1]:.3f} ms replicated")
+        f"{int(sharded.sum())} survive; verdict {sharded_ms:.3f} ms sharded, "
+        f"{replicated_ms:.3f} ms replicated")
     return {k: v for k, v in launches.items() if v}
-
-
-# -- phase G: the port's bench ------------------------------------------------------
-
-
-def bench_phase() -> None:
-    """Phase G: ``python -m ntjoin_tpu_torch.bench --quick``; its detail and
-    headline lines forwarded and checked."""
-    t0 = time.monotonic()
-    res = subprocess.run([sys.executable, "-m", "ntjoin_tpu_torch.bench", "--quick"], cwd=REPO,
-                         env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
-                         timeout=600)
-    if res.returncode != 0:
-        fail(f"bench --quick exited {res.returncode}:\n{res.stderr[-4000:]}")
-    lines = res.stdout.strip().splitlines()
-    if len(lines) < 2:
-        fail(f"bench --quick printed no detail and headline:\n{res.stdout[-2000:]}")
-    say("   " + lines[-2])
-    say("   " + lines[-1])
-    detail, headline = json.loads(lines[-2])["detail"], json.loads(lines[-1])
-    missing = [key for key in bench.HEADLINE_KEYS if key not in headline]
-    if missing:
-        fail(f"the bench's headline lacks {missing}")
-    if detail["e2e_30mbp"]["artifacts_equal"] < 1:
-        fail("the bench compared no artifact of its 30 Mbp cell")
-    idle = detail["idle_30mbp"]
-    for key in ("idle_share_of_wall", "idle_share_of_span"):
-        if not 0 <= idle[key] <= 1:
-            fail(f"the bench's {key} {idle[key]} is outside [0, 1]")
-    say(f"== bench: --quick in {time.monotonic() - t0:.1f} s; {headline['value']} Gbp/s "
-        f"({headline['vs_baseline']}x the native sketcher), 30 Mbp assemble "
-        f"{detail['e2e_30mbp']['cuda']['min']:.3f} s on the card against "
-        f"{detail['e2e_30mbp']['native_host']['min']:.3f} s, idle share "
-        f"{idle['idle_share_of_wall']:.4f} of its wall")
 
 
 # -- phase B: Mann-Kendall ------------------------------------------------------------
@@ -1440,9 +1428,9 @@ def mann_kendall() -> dict:
         for pos, n in batches:
             mk.mk_s_batch_ref(pos, n)
 
-    launched = sc.COUNTS["mk_s"]
-    kernel()
-    launched = sc.COUNTS["mk_s"] - launched
+    with timers.recording(True):
+        kernel()
+    launched = timers.COUNTERS.get("launch:mk_s", 0)
     sort_launches = len(batches)  # pass 2 only where a row has several tiles
     cross_launches = sum(mk.mk_launch(*p.shape)[3] > 0 for p, _ in batches)
     if launched != sort_launches + cross_launches:
@@ -1450,13 +1438,13 @@ def mann_kendall() -> dict:
              f"want {sort_launches} + {cross_launches}")
     kernel_ms, queued_ms = _time_ms(kernel, 5), _time_queued_ms(kernel, 2)
     op_ms, route_ms, plain_ms = _time_ms(op, 5), _time_ms(route, 5), _time_ms(plain, 1)
-    mk.reset_counts()
     t0 = time.monotonic()
-    s_card = orientation._mk_s(runs, torch.device("cuda"))
+    with timers.recording(True):
+        s_card = orientation._mk_s(runs, torch.device("cuda"))
     card_s = time.monotonic() - t0
-    counts = dict(mk.COUNTS)
-    if counts["device"] != "cuda" or counts["mk_runs"] != len(runs):
-        fail(f"mann-kendall: the op did not run on the card: {counts}")
+    counts = counters()
+    if counts["mk:runs@cuda"] != len(runs) or counts["mk:runs@cpu"]:
+        fail(f"mann-kendall: the op did not run on the card: {dict(counts)}")
     t0 = time.monotonic()
     s_cpu = orientation._mk_s(runs, torch.device("cpu"))
     cpu_s = time.monotonic() - t0
@@ -1469,7 +1457,7 @@ def mann_kendall() -> dict:
     if orientation.determine_orientations(runs, True, 90, "cuda") != scalar:
         fail("mann-kendall: the batched verdicts differ from the scalar route's")
     say(f"== mann-kendall: {len(runs)} runs (B=4096 of L=2..2048 positions, 2 of 100,000), "
-        f"{counts['mk_batches']} batches by padded width; S of the kernel equal to its plain "
+        f"{counts['mk:batches@cuda']} batches by padded width; S of the kernel equal to its plain "
         f"version's on the card, and on the card and the CPU; verdicts "
         f"{sum(v == '+' for v in scalar)} +, {sum(v == '-' for v in scalar)} -, "
         f"{sum(v == '?' for v in scalar)} ? as the scalar route's")
@@ -1690,8 +1678,8 @@ def e2e(sizes: list[int], target, words: tuple[str, ...] = (),
     """Phase 8 (and phase C): the port's assemble on the card against its
     host path (C++ sketcher, NumPy graph layers), with the target that
     ``target`` writes and the extra ``words``; then ``then(work directory,
-    the assemble words)`` (phase F).  Returns the card run's sketch and
-    Mann-Kendall counts and what ``then`` returned."""
+    the assemble words)`` (phase F).  Returns the card run's counters and
+    what ``then`` returned."""
     rng = np.random.default_rng(5)
     with tempfile.TemporaryDirectory(prefix="ntjoin_smoke_") as tmp:
         port, ref = os.path.join(tmp, "port"), os.path.join(tmp, "ref")
@@ -1740,24 +1728,19 @@ def e2e(sizes: list[int], target, words: tuple[str, ...] = (),
         for ln in _stages(r_out):
             say("     " + ln)
         _stage_rss(ref, "e2e", r_out)
-        counts = _counts_line(p_out, "sketch_counts")
-        _check_held(port, counts["codes_held_max"])
-        _check_sketch_rss(port, p_rss, counts["codes_held_max"])
-        index = _counts_line(p_out, "index_counts")
-        say(f"   card run's counts: {json.dumps(counts)}")
-        say(f"   card run's index counts: {json.dumps(index)}")
-        host_counts = _counts_line(r_out, "sketch_counts")
-        if any(host_counts[name] for name in sc.KERNELS) or any(
-                v["launches"] for v in _counts_line(r_out, "index_counts").values()
-                if isinstance(v, dict)):
+        counts = counters(_counts_line(p_out, "trace_counts")["counters"])
+        _check_held(port, counts["sketch:codes_held_max"])
+        _check_sketch_rss(port, p_rss, counts["sketch:codes_held_max"])
+        say(f"   card run's counters: {json.dumps(counts)}")
+        host_counts = counters(_counts_line(r_out, "trace_counts")["counters"])
+        say(f"   host run's counters: {json.dumps(host_counts)}")
+        if any(host_counts["launch:" + name] for name in SOURCES) or any(
+                name.startswith("graph:") for name in host_counts):
             fail("the host path launched a kernel or a torch graph op: no independent oracle")
-        for op in di.GRAPH_OPS:
-            if index[op]["launches"] < 1 or index[op]["device"] != "cuda":
-                fail(f"graph op {op} did not run on the GPU in the e2e run: {index}")
-        mk_counts = _counts_line(p_out, "mk_counts")
-        say(f"   card run's Mann-Kendall counts: {json.dumps(mk_counts)}; the host run's: "
-            f"{json.dumps(_counts_line(r_out, 'mk_counts'))}")
-        return counts, mk_counts, then(tmp, args) if then else None
+        for op in GRAPH_OPS:
+            if counts[f"graph:{op}@cuda"] < 1 or counts[f"graph:{op}@cpu"]:
+                fail(f"graph op {op} did not run on the GPU in the e2e run: {dict(counts)}")
+        return counts, then(tmp, args) if then else None
 
 
 JSON_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1769,37 +1752,36 @@ def main() -> int:
     times = kernels()
     times["copy"] = copy()
     counts = {"window_emit_gmem": sketch()}
-    counts["copy"] = prof()["copy"]  # the profiler is the copy kernel's main path
+    counts["copy"] = prof()["launch:copy"]  # the profiler is the copy kernel's main path
     graph()
     general_path = general()
     times["stream"] = general_path["stream"]
     times["mk_s"] = mann_kendall()
     sizes = [24_000_000, 22_000_000, 20_000_000, 18_000_000, 16_000_000]
-    run, _, dist_launches = e2e(sizes, contigs_target, then=distributed_phase)
-    if run["host_records"] != 0:
-        fail(f"{run['host_records']} records took the host sketcher")
-    if run["flags"] != sc.FLAG_LAUNCHES * run["hash"]:
-        fail(f"the e2e run's batches went round the flag kernel: {run}")
-    counts.update({name: run[name]
+    run, dist_launches = e2e(sizes, contigs_target, then=distributed_phase)
+    if run["sketch_route:host_records"] != 0:
+        fail(f"{run['sketch_route:host_records']} records took the host sketcher")
+    if run["launch:flags"] != sc.FLAG_LAUNCHES * run["launch:hash"]:
+        fail(f"the e2e run's batches went round the flag kernel: {dict(run)}")
+    counts.update({name: run["launch:" + name]
                    for name in ("hash", "flags", "window_emit", "window", "stream")})
     # phase C: the same genome, an N-dense draft target, mkt=True
-    draft, mk_run, _ = e2e(sizes, draft_target, ("mkt=True",), "e2e, N-dense draft, mkt=True")
-    if draft["general_records"] < 1 or draft["host_records"]:
-        fail(f"the draft's N-dense scaffolds did not take the general path: {draft}")
+    draft, _ = e2e(sizes, draft_target, ("mkt=True",), "e2e, N-dense draft, mkt=True")
+    if draft["sketch_route:general_records"] < 1 or draft["sketch_route:host_records"]:
+        fail(f"the draft's N-dense scaffolds did not take the general path: {dict(draft)}")
     _counted_route(draft, W, "e2e draft")
-    if mk_run["device"] != "cuda" or mk_run["mk_runs"] < 1:
-        fail(f"the Mann-Kendall op did not run on the card in the mkt=True run: {mk_run}")
-    counts["mk_s"] = draft["mk_s"]  # the mkt=True run is the S kernel's main path
+    if draft["mk:runs@cuda"] < 1 or draft["mk:runs@cpu"]:
+        fail(f"the Mann-Kendall op did not run on the card in the mkt=True run: {dict(draft)}")
+    counts["mk_s"] = draft["launch:mk_s"]  # the mkt=True run is the S kernel's main path
     bound_records()
     mesh_launches = mesh_phase(smi)
-    bench_phase()
 
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "ntjoin_tpu"
               or m.startswith("ntjoin_tpu.")]
     if loaded:
         fail(f"JAX or the JAX package was imported: {loaded[:5]}")
-    for name in sc.KERNELS:
+    for name in SOURCES:
         if counts[name] < 1:
             fail(f"kernel {name} was not launched on its main path")
     say(json.dumps({"kernels": [
@@ -1813,7 +1795,7 @@ def main() -> int:
          **({"general_ms": general_path[name]["ms"]} if name in general_path else {}),
          **({"launches_mesh": mesh_launches[name]} if name in mesh_launches else {}),
          **({"launches_dist": dist_launches[name]} if name in dist_launches else {})}
-        for name in sc.KERNELS
+        for name in SOURCES
     ]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -48,7 +48,7 @@ from ntjoin_tpu_torch.core.scaffolder import Scaffolder
 from ntjoin_tpu_torch.emit.writers import write_minimizer_tsv
 from ntjoin_tpu_torch.io import native
 from ntjoin_tpu_torch.io.fasta import write_fai
-from ntjoin_tpu_torch.ops import device_index, mannkendall, sketch_cuda, sketch_records
+from ntjoin_tpu_torch.ops import sketch_records
 from ntjoin_tpu_torch.ops.nthash_np import sketch_codes, sketch_seq
 from ntjoin_tpu_torch.parallel.distributed import shard_device
 from ntjoin_tpu_torch.parallel.mesh import sketch_records_sharded
@@ -320,8 +320,6 @@ def assemble(words: list[str]) -> int:
             w=w,
             **scaffold_opts,
         )
-        device_index.reset_counts()
-        mannkendall.reset_counts()
         with stages.stage("scaffold"):
             Scaffolder(cfg, sketch_cache=cache, device=index_device).run()
 
@@ -335,9 +333,6 @@ def assemble(words: list[str]) -> int:
                     _gzip_artifact(part, threads=int(v["t"]))
         stages.report()
         if stages.enabled:
-            print("sketch_counts\t" + json.dumps(sketch_cuda.COUNTS))
-            print("index_counts\t" + json.dumps(device_index.counts_report()))
-            print("mk_counts\t" + json.dumps(mannkendall.COUNTS))
             print("trace_counts\t" + json.dumps(timers.trace_counts()))
         return 0
 
@@ -347,7 +342,7 @@ def _distributed(v: dict[str, str], k: int, w: int, n: int, prefix: str, device:
     """One process of the multi-process pipeline, as ``ntjoin_tpu/cli.py``
     runs it: its records sketched by the backend's sketcher on its shards'
     device, the verdict by hash bucket, process 0 scaffolds.  Prints the
-    process's counts under ``time=True``."""
+    process's ``trace_counts`` line under ``time=True``."""
     pid = int(v["process_id"])
     dev = str(shard_device(pid, device))
     cfg = DistributedConfig(
@@ -366,9 +361,11 @@ def _distributed(v: dict[str, str], k: int, w: int, n: int, prefix: str, device:
         device=dev,
         scaffold_opts=scaffold_opts,
     )
-    counts = distributed_assemble(cfg, _sketcher(v["backend"], dev))
-    if _truthy(v["time"]):
-        print("dist_counts\t" + json.dumps(counts))
+    on = _truthy(v["time"])
+    with timers.recording(on):
+        distributed_assemble(cfg, _sketcher(v["backend"], dev))
+        if on:
+            print("trace_counts\t" + json.dumps(timers.trace_counts()))
     return 0
 
 

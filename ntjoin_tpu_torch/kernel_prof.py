@@ -29,7 +29,8 @@ Stages (default: all, in this order):
 Each stage prints one JSON line ``{stage: {...}}`` when it ends; a stage
 that the budget (KP_BUDGET_S seconds, default 3000) leaves no time for
 prints ``{stage: {"skipped": ...}}``.  The run ends with ``{"counts": ...}``,
-the kernel launches of the whole run, and ``{"done": true}``.  Times in
+the counters of the whole run (``utils/timers.py``: kernel launches under
+``launch:``), and ``{"done": true}``.  Times in
 ``*_ms`` are CUDA events over back-to-back calls after a warm-up; ``per_call``
 and ``wall`` times are host clocks around synchronised calls.  KP_SIZE sets
 the bases (default 2^27), KP_W the window of every stage but the copy
@@ -50,6 +51,7 @@ from ntjoin_tpu_torch.constants import CODE_INVALID
 from ntjoin_tpu_torch.ops import sketch_cuda as sc
 from ntjoin_tpu_torch.ops import sketch_records as sr
 from ntjoin_tpu_torch.ops.membw import copy_words, copy_words_ref
+from ntjoin_tpu_torch.utils import timers
 
 STAGES = ("link", "fused", "events", "membw", "ablate", "decomp", "multi", "general")
 K, W = 32, 1000
@@ -160,7 +162,13 @@ def main(argv: list[str] | None = None) -> int:
     deadline = time.monotonic() + float(os.environ.get("KP_BUDGET_S", 3000))
     size = int(os.environ.get("KP_SIZE", 1 << 27))
     w = int(os.environ.get("KP_W", W))
-    sc.reset_counts()
+    with timers.recording(True):
+        return _profile(stages, deadline, size, w)
+
+
+def _profile(stages: list[str], deadline: float, size: int, w: int) -> int:
+    """Each asked stage in turn, inside ``main``'s recording; then the
+    run's counters."""
     emit("device", {"name": torch.cuda.get_device_name(0), "size": size, "k": K, "w": w})
     codes = np.random.default_rng(42).integers(0, 4, size=size, dtype=np.int8)
     flat, C, L = _stream(codes, w)
@@ -218,13 +226,13 @@ def main(argv: list[str] | None = None) -> int:
         elif stage == "ablate":
             t_hash = events_ms(lambda: fused("hash"))
             t_win = events_ms(lambda: fused("window"))
-            runs0 = sc.COUNTS["exact_runs"]
+            runs0 = timers.COUNTERS.get("sketch_route:exact_runs", 0)
             t_full = events_ms(fused)
             val = fused("hash")[1]
             t_flags = events_ms(lambda: sc.window_flags(val, L, w, off))
             del val
             out = {**marginals(t_hash, t_flags, t_win, t_full),
-                   "exact_ran": sc.COUNTS["exact_runs"] > runs0}
+                   "exact_ran": timers.COUNTERS.get("sketch_route:exact_runs", 0) > runs0}
             if out["exact_ran"]:
                 h, _ = fused("hash")
                 over = torch.nonzero(fused("window")[2] > cap).flatten()
@@ -283,7 +291,7 @@ def main(argv: list[str] | None = None) -> int:
             emit(stage, {"records": len(recs), "wall_s": sorted(walls),
                          "gbases_s": size / walls[best] / 1e9, "stages_s": splits[best]})
         torch.cuda.empty_cache()
-    emit("counts", sc.COUNTS)
+    emit("counts", timers.COUNTERS)
     emit("done", True)
     return 0
 

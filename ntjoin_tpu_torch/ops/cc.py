@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ntjoin_tpu_torch.ops.device_index import COUNTS, _count
+from ntjoin_tpu_torch.utils import timers
 
 
 def connected_components(num_nodes: int, src: np.ndarray, dst: np.ndarray,
@@ -23,7 +23,7 @@ def connected_components(num_nodes: int, src: np.ndarray, dst: np.ndarray,
     """Dense component label per node (isolated nodes included), int64,
     identical to ``MinimizerGraph.components`` on the same edges."""
     dev = torch.device(device)
-    _count("cc", dev)
+    timers.count("graph:cc@" + dev.type)
     if num_nodes == 0:
         return np.empty(0, dtype=np.int64)
     s = torch.from_numpy(np.asarray(src, dtype=np.int64)).to(dev)
@@ -35,7 +35,7 @@ def connected_components(num_nodes: int, src: np.ndarray, dst: np.ndarray,
         parent.scatter_reduce_(0, torch.maximum(ps, pd), torch.minimum(ps, pd), reduce="amin")
         for _ in range(doublings):
             parent = parent[parent]
-        COUNTS["cc_rounds"] += 1
+        timers.count("graph:cc_rounds")
         if not bool((parent[s] != parent[d]).any()):
             break
     return torch.unique(parent, return_inverse=True)[1].cpu().numpy()

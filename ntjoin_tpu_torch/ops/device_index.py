@@ -17,10 +17,10 @@ the JAX package's int32-position, 4-bit-count and 32-assembly host routes
 have no counterpart here.  Edge weights are summed on the host from the
 counts in the host builder's order, so they match it float for float.
 
-Graph ops count their runs in ``COUNTS`` and the device type they ran on in
-``DEVICES`` (``ops/cc.py`` and ``ops/device_paths.py`` count here too);
-``COUNTS["cc_rounds"]`` counts the hooking rounds of connected components,
-one sync each.
+Graph ops count their runs in ``graph:<op>@<device type>`` (``ops/cc.py``
+and ``ops/device_paths.py`` too), and connected components its hooking
+rounds, one sync each, in ``graph:cc_rounds`` (counters of
+``utils/timers.py``).
 """
 from __future__ import annotations
 
@@ -28,33 +28,9 @@ import numpy as np
 import torch
 
 from ntjoin_tpu_torch.core.assembly import SharedIndex
+from ntjoin_tpu_torch.utils import timers
 
-GRAPH_OPS = ("shared_filter", "edge_tally", "cc", "escalate", "rank")
-COUNTS: dict[str, int] = {}
-DEVICES: dict[str, str] = {}
 _SIGN = -(1 << 63)  # int64 bits of 1 << 63
-
-
-def reset_counts() -> None:
-    COUNTS.clear()
-    DEVICES.clear()
-    COUNTS.update(dict.fromkeys(GRAPH_OPS, 0), cc_rounds=0)
-
-
-reset_counts()
-
-
-def _count(name: str, device: torch.device) -> None:
-    COUNTS[name] += 1
-    DEVICES[name] = device.type
-
-
-def counts_report() -> dict:
-    """{op: {"launches": n, "device": type of its last device or None}},
-    and the hooking rounds under "cc_rounds"."""
-    out: dict = {op: {"launches": COUNTS[op], "device": DEVICES.get(op)} for op in GRAPH_OPS}
-    out["cc_rounds"] = COUNTS["cc_rounds"]
-    return out
 
 
 def _lexsort(*keys: torch.Tensor) -> torch.Tensor:
@@ -102,7 +78,7 @@ def _shared_filter(h, asm, ctg, pos, dead, n_asm: int):
     assembly order.  Returns the (node, assembly) tables of hash, contig and
     position, each (num_nodes, n_asm), and each element's node id in the
     original order (-1 where the hash did not survive)."""
-    _count("shared_filter", h.device)
+    timers.count("graph:shared_filter@" + h.device.type)
     order, survive = survive_verdict_sorted(h, asm, dead, n_asm)
     sel = order[survive]  # survivor rank = node * n_asm + assembly
     nid = torch.full_like(h, -1)
@@ -117,7 +93,7 @@ def _edge_tally_exact(nid, ctg, asm, num_nodes: int, n_asm: int):
     occurrence, oriented as it, with counts (edges, n_asm) int32 the pair's
     adjacencies in each assembly."""
     dev = nid.device
-    _count("edge_tally", dev)
+    timers.count("graph:edge_tally@" + dev.type)
     alive = (asm[1:] == asm[:-1]) & (ctg[1:] == ctg[:-1])
     occ = torch.nonzero(alive).flatten()
     if occ.shape[0] == 0:

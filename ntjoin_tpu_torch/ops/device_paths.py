@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ntjoin_tpu_torch.ops.device_index import _count
+from ntjoin_tpu_torch.utils import timers
 
 
 def _degrees(src: torch.Tensor, dst: torch.Tensor, alive: torch.Tensor, n: int) -> torch.Tensor:
@@ -35,7 +35,7 @@ def escalate_filter_device(graph, comp: np.ndarray, n_min: float, max_weight: fl
     edges lighter than the threshold that touch a branch node die, and the
     threshold rises by 1."""
     dev = torch.device(device)
-    _count("escalate", dev)
+    timers.count("graph:escalate@" + dev.type)
     n = graph.num_nodes
     alive = torch.from_numpy(np.asarray(graph.alive, dtype=bool).copy()).to(dev)
     if comp.size == 0:
@@ -73,7 +73,7 @@ def chain_ranks_device(n1: np.ndarray, n2: np.ndarray,
     Dead slots are their own terminal with remain 0; cycles never end, and
     their remain is clamped at 2^30."""
     dev = torch.device(device)
-    _count("rank", dev)
+    timers.count("graph:rank@" + dev.type)
     n = n1.shape[0]
     rounds = max(1, int(np.ceil(np.log2(max(n, 2)))) + 1)
     a1 = torch.from_numpy(np.asarray(n1, dtype=np.int64)).to(dev)

@@ -26,11 +26,12 @@ that counts S during a merge sort of each row: tiles of up to ``MK_TILE``
 values sorted in shared memory, each element counting the values of its
 sibling run below and above it, then the pairs across a row's sorted tiles
 (O(n log^2 n) steps, no boolean tensor); its launches count in
-``sketch_cuda.COUNTS["mk_s"]``, the plain version's calls in
-``["mk_s_plain"]``.  ``core.orientation._mk_s`` checks the lengths it
-built on the host and calls ``mk_s_batch_host``, which reads nothing back
-from the card; it queues each batch's upload without a wait and reads every
-batch's S back at once.
+``launch:mk_s``, the plain version's calls in ``launch:mk_s_plain``, and
+every batch in ``mk:batches@<device type>`` and its runs in
+``mk:runs@<device type>`` (``utils/timers.py``).  ``core.orientation._mk_s``
+checks the lengths it built on the host and calls ``mk_s_batch_host``,
+which reads nothing back from the card; it queues each batch's upload
+without a wait and reads every batch's S back at once.
 """
 from __future__ import annotations
 
@@ -38,22 +39,11 @@ import numpy as np
 import torch
 
 from ntjoin_tpu_torch.ops import sketch_cuda as sc
+from ntjoin_tpu_torch.utils import timers
 
 # Bytes of one live (B, block, L) boolean comparison tensor.
 BLOCK_BYTES = 1 << 26
 _PAD = torch.iinfo(torch.int64).max
-
-# Batches the op ran, runs they held, and the device type of the last batch
-# (``reset_counts`` zeroes them).
-COUNTS: dict = {}
-
-
-def reset_counts() -> None:
-    COUNTS.clear()
-    COUNTS.update(mk_batches=0, mk_runs=0, device=None)
-
-
-reset_counts()
 
 
 def _prepare(positions: torch.Tensor, lengths: torch.Tensor):
@@ -78,7 +68,7 @@ def _prepare(positions: torch.Tensor, lengths: torch.Tensor):
 def mk_s_batch_ref(positions: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Plain version of the S kernel: exact Mann-Kendall S of each padded
     row of ``mk_s_batch``'s arguments, by blocked boolean comparisons."""
-    sc.add_count("mk_s_plain")
+    timers.count("launch:mk_s_plain")
     pos, lengths, _, offset, valid = _prepare(positions, lengths)
     b, n = pos.shape
     step = max(1, min(n, BLOCK_BYTES // max(b * n, 1)))
@@ -197,9 +187,9 @@ def mk_s_batch_host(positions: torch.Tensor, lengths: np.ndarray) -> torch.Tenso
 
 def _mk_s_checked(positions: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """S of checked arguments on their device."""
-    COUNTS["mk_batches"] += 1
-    COUNTS["mk_runs"] += positions.shape[0]
-    COUNTS["device"] = positions.device.type
+    at = "@" + positions.device.type
+    timers.count("mk:batches" + at)
+    timers.count("mk:runs" + at, positions.shape[0])
     if not sc._on_cuda(positions):
         return mk_s_batch_ref(positions, lengths)
     return _mk_s_kernel(positions.contiguous(), lengths.contiguous())
@@ -221,7 +211,7 @@ def _mk_s_kernel(positions: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor
                                 None if srt is None else srt.data_ptr(), s.data_ptr(),
                                 sc._stream(positions))
     sc._raise_on(err, "mk_s")
-    sc.add_count("mk_s", 2 if pairs else 1)
+    timers.count("launch:mk_s", 2 if pairs else 1)
     return s
 
 

@@ -4,18 +4,19 @@ its plain PyTorch version.  Port of the two ``pallas_copy`` kernels of
 ``scripts/kernel_prof.py``.
 
 The wrapper runs the plain version for a CPU tensor and launches the kernel
-for a CUDA tensor; launches count in ``sketch_cuda.COUNTS["copy"]``.
+for a CUDA tensor; launches count in ``launch:copy`` (``utils/timers.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from ntjoin_tpu_torch.ops import sketch_cuda as sc
+from ntjoin_tpu_torch.utils import timers
 
 
 def copy_words_ref(x: torch.Tensor) -> torch.Tensor:
     """Plain version: a new tensor equal to ``x``."""
-    sc.add_count("copy_plain")
+    timers.count("launch:copy_plain")
     return torch.empty_like(x).copy_(x)
 
 

@@ -53,7 +53,6 @@ import ctypes
 import glob
 import os
 import subprocess
-import threading
 import time
 
 import numpy as np
@@ -61,62 +60,11 @@ import torch
 
 from ntjoin_tpu_torch.constants import CODE_INVALID, SEEDS, SROL_PERIOD
 from ntjoin_tpu_torch.ops import u64
+from ntjoin_tpu_torch.utils import timers
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 LIB_PATH = os.path.join(_PKG, "_build", "libntjoin_cuda.so")
-
-# Kernel launches by op, calls of each op's plain version, records the host
-# sketcher took whole (``host_records``; of them, those too long for the
-# device, ``host_records_size``), records and batches of the general path
-# (``ops/sketch_records.py``), and runs of the exact window path.  Plain
-# counters so that a run can show which code served it; ``reset_counts``
-# zeroes them.  The sketch runs ``hash``, ``flags`` (``FLAG_LAUNCHES`` an
-# op: summary, scan, walk), one of the two window/emission routes and
-# ``window``, and the general path also
-# ``stream``, its compaction (``ops/sketch_general.py``, four launches a
-# batch: count, gather, chunks, decode); the copy (``ops/membw.py``) serves
-# the profiler, ``mk_s`` the Mann-Kendall S of ``mkt=True``
-# (``ops/mannkendall.py``).  ``codes_held_max`` is no count but the most
-# code bytes a ``sketch_records_torch`` call held at once (its batch
-# buffer, probe block or host record, one at a time), raised by
-# ``max_count``.
-# ``add_count`` adds under a lock: a mesh of several devices sketches from a
-# thread a device (``parallel/mesh.py``).
-KERNELS = ("hash", "flags", "window_emit", "window_emit_gmem", "window", "copy", "stream",
-           "mk_s")
-# each has one plain version
-_OPS = ("hash", "flags", "window_emit", "window", "copy", "stream", "mk_s")
-COUNTS: dict[str, int] = {}
-COUNT_LOCK = threading.Lock()
-
-
-def add_count(name: str, n: int = 1) -> None:
-    with COUNT_LOCK:
-        COUNTS[name] += n
-
-
-def max_count(name: str, value: int) -> None:
-    """Raise ``COUNTS[name]`` to ``value`` where it is lower."""
-    with COUNT_LOCK:
-        COUNTS[name] = max(COUNTS[name], value)
-
-
-def reset_counts() -> None:
-    COUNTS.clear()
-    for name in KERNELS:
-        COUNTS[name] = 0
-    for name in _OPS:
-        COUNTS[name + "_plain"] = 0
-    COUNTS["host_records"] = 0
-    COUNTS["host_records_size"] = 0
-    COUNTS["general_records"] = 0
-    COUNTS["general_batches"] = 0
-    COUNTS["exact_runs"] = 0
-    COUNTS["codes_held_max"] = 0
-
-
-reset_counts()
 
 # Chunks: at least 4 halos of windows per chunk (halo work under 25%), and no
 # more chunks than the card can use threads for.
@@ -246,7 +194,7 @@ def _raise_on(err: int, name: str) -> None:
 
 def _launched(err: int, name: str) -> None:
     _raise_on(err, name)
-    add_count(name)
+    timers.count("launch:" + name)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -323,7 +271,7 @@ def hash_chunked_ref(codes_rc: torch.Tensor, k: int) -> tuple[torch.Tensor, torc
     ``srol^(k-1-t)(seed[b])`` (forward) and ``srol^t(seed[3-b])`` (reverse),
     t the base's offset in the k-mer; rows before 0 contribute nothing.
     """
-    add_count("hash_plain")
+    timers.count("launch:hash_plain")
     rows, C = codes_rc.shape
     dev = codes_rc.device
     code = codes_rc.to(torch.uint8).long().clamp_(max=CODE_INVALID)
@@ -416,7 +364,7 @@ def window_argmin_ref(h: torch.Tensor, L: int, w: int, off: int,
     """Plain version of kernel 3: (L, len(chunks)) int64 stream position
     c*L + s of the leftmost minimal hash of every window of each listed
     chunk c (elements at rows off + s); all chunks by default."""
-    add_count("window_plain")
+    timers.count("launch:window_plain")
     return _argmin_core(h, L, w, off, _all_chunks(h) if chunks is None else chunks)
 
 
@@ -424,7 +372,7 @@ def window_emit_ref(h: torch.Tensor, flags: torch.Tensor, L: int, w: int, off: i
                     cap: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of kernel 2: per-chunk emission lists (pos, hash), each
     (cap, C) and padded with -1 / 0, and the true per-chunk counts (C,)."""
-    add_count("window_emit_plain")
+    timers.count("launch:window_emit_plain")
     C = h.shape[1]
     am = _argmin_core(h, L, w, off, _all_chunks(h))
     emit = _emit_mask(am, flags)
@@ -689,7 +637,7 @@ def window_flags_ref(val: torch.Tensor, L: int, w: int, off: int) -> torch.Tenso
     record's first window); val (rows, C) int8 holds 1 for a valid k-mer, the
     window's first at row off + j.  For a ``pitched`` val the pass runs over
     the whole buffer, so the flags come out pitched alike."""
-    add_count("flags_plain")
+    timers.count("launch:flags_plain")
     n_cols = val.shape[1]
     val = _padded(val)
     C = val.shape[1]
@@ -811,7 +759,7 @@ def window_flags(val: torch.Tensor, L: int, w: int, off: int) -> torch.Tensor:
                               scratch.data_ptr(), m_pitch, flags.data_ptr(), flags.stride(0),
                               _stream(val))
     _raise_on(err, "flags")
-    add_count("flags", FLAG_LAUNCHES)  # the three passes, launched by the one call
+    timers.count("launch:flags", FLAG_LAUNCHES)  # the three passes, launched by the one call
     return flags
 
 
@@ -871,7 +819,7 @@ def window_stream(h: torch.Tensor, val: torch.Tensor, L: int, w: int, off: int,
     hashes and k-mer valid flags whose element s of chunk c sits at row
     off + s (rows >= off + L + w - 1): the flag op, the window/emission op,
     compaction, and the exact op for the chunks whose list overflowed,
-    counted in ``COUNTS["exact_runs"]`` once per call.  Returns the
+    counted in ``sketch_route:exact_runs`` once per call.  Returns the
     (stream positions c*L + s, canonical hashes) of every emission, int64,
     in stream order with chunk-seam duplicates dropped; with ``lists`` the
     window/emission op's (positions, hashes, counts) before compaction."""
@@ -886,7 +834,7 @@ def window_stream(h: torch.Tensor, val: torch.Tensor, L: int, w: int, off: int,
     pos, canon = _compact_lists(spos, shsh, count, total)
     if n_over:
         # exact path for the overflowed chunks, merged back in stream order
-        add_count("exact_runs")
+        timers.count("sketch_route:exact_runs")
         chunks = torch.nonzero(over).flatten()
         am = (window_argmin_ref if plain else window_argmin)(h, L, w, off, chunks)
         xpos, xcanon = _compact_exact(am, flags, h, chunks, L, off)

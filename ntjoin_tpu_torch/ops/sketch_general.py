@@ -30,7 +30,7 @@ stream:
    device-memory route by w), compaction, the exact kernel for overflowed
    chunks.  Then ``decode_ranks`` maps the emitted ranks to their positions:
    on the card the compaction kernel's fourth pass.  So a batch makes four
-   launches counted in ``sketch_cuda.COUNTS["stream"]``: count, gather,
+   launches counted in ``launch:stream`` (``utils/timers.py``): count, gather,
    chunks, decode (none for a batch that emits nothing).
 
 The plain version (a CPU tensor, or ``plain``) takes the positions of every
@@ -55,6 +55,7 @@ from typing import NamedTuple
 import torch
 
 from ntjoin_tpu_torch.ops import sketch_cuda as sc
+from ntjoin_tpu_torch.utils import timers
 
 # Rows of a tile, a column's unit of the compaction kernel (csrc/stream.cu):
 # the kept rows of a tile are one 32-bit mask.
@@ -120,7 +121,7 @@ def stream_batch(flat: torch.Tensor, n: int, starts: torch.Tensor, k: int, w: in
     h, val, L = hash_batch(flat, n, k, w, plain)
     if plain or not sc._on_cuda(flat):
         # the plain version of the compaction kernel
-        sc.add_count("stream_plain")
+        timers.count("launch:stream_plain")
         pos = valid_positions(val, L, n, starts, k)
         hflat, Ls = gather_stream(h, pos, L, k, w)
         del h

@@ -8,12 +8,12 @@ into batches of about ``BATCH_BASES`` bases:
   (``sketch_cuda.sketch_fused_torch``) of the batch's joined stream;
 * a record with N runs, the general path (``ops/sketch_general.py``), whose
   windows slide over the valid k-mers across the runs; counted in
-  ``COUNTS["general_records"]`` and ``["general_batches"]``.
+  ``sketch_route:general_records`` and ``sketch_route:general_batches``.
 
 A record longer than ``record_bound`` for its path is sketched whole on the
 host, decided from its length (and, where the two paths' bounds differ,
-its path) before any launch and counted in ``COUNTS["host_records"]`` and
-``["host_records_size"]``.
+its path) before any launch and counted in ``sketch_route:host_records``
+(counters of ``utils/timers.py``).
 
 The records come from a source (``io.native.FastaSource`` for a FASTA
 file), which encodes each one straight into its batch's host buffer: no
@@ -22,6 +22,7 @@ call holds more than one batch of codes at a time.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -42,6 +43,8 @@ from ntjoin_tpu_torch.utils import timers
 # is a span of ``utils/timers`` (``sketch:<fa>/plan`` and so on, where
 # spans are on), and its seconds are the span's own.
 STAGES: dict[str, float] = {}
+# a mesh of several devices sketches from a thread a device
+_STAGES_LOCK = threading.Lock()
 
 # Per-batch bases: at most ``GENERAL_BYTES_PER_BASE`` a base on the card, so
 # 2^28 bases stay under 8 GB.  A larger record gets a batch of its own.
@@ -66,7 +69,7 @@ def _stage(name: str):
     """The block as the span ``name``; its seconds added to ``STAGES[name]``."""
     with timers.timed(name) as span:
         yield
-    with sc.COUNT_LOCK:
+    with _STAGES_LOCK:
         STAGES[name] = STAGES.get(name, 0.0) + span.s
 
 
@@ -245,7 +248,7 @@ def _plan(src, lengths: np.ndarray, bound: dict):
     paths: dict[bool, list[tuple[int, int]]] = {False: [], True: []}
     hosts: list[int] = []
     scratch = np.empty(min(int(lengths.max(initial=0)), native.PROBE_BASES), dtype=np.uint8)
-    sc.max_count("codes_held_max", scratch.shape[0])
+    timers.count_max("sketch:codes_held_max", scratch.shape[0])
     for i, n in enumerate(lengths.tolist()):
         general = n > bound[False] or not src.clean(i, scratch)
         if n > bound[general]:
@@ -267,7 +270,7 @@ def _run_path(src, batches: list, general: bool, k: int, w: int, device: torch.d
     pin = device.type == "cuda"
     with timers.span("buffer"):
         buf = host_buffer(size, pin)
-    sc.max_count("codes_held_max", size)
+    timers.count_max("sketch:codes_held_max", size)
     view = buf.numpy()
     try:
         for b, (offsets, total) in zip(batches, joined):
@@ -277,7 +280,7 @@ def _run_path(src, batches: list, general: bool, k: int, w: int, device: torch.d
                     view[o + n : o + n + sep] = CODE_INVALID
                 end = stream_len(total, k, w)
                 view[total:end] = CODE_INVALID
-            sc.add_count("general_batches", general)
+            timers.count("sketch_route:general_batches", general)
             got = _sketch_batch(buf[:end], total, offsets, k, w, device, sketch, slot_cap, plain)
             for (i, _), sk in zip(b, got):
                 out[i] = sk
@@ -301,8 +304,8 @@ def sketch_records_torch(records, k: int, w: int, device: str | torch.device = "
     (``clean``), then sketches the host records one at a time, then each
     path's batches, each record encoded straight into the path's batch
     buffer.  It holds one of the probe's block, one batch buffer or one host
-    record's codes at a time: the largest of them is raised into
-    ``COUNTS["codes_held_max"]``."""
+    record's codes at a time: the largest of them is raised into the
+    counter ``sketch:codes_held_max``."""
     with _stage("plan"):
         src = as_source(records)
         device = torch.device(device)
@@ -310,13 +313,12 @@ def sketch_records_torch(records, k: int, w: int, device: str | torch.device = "
         bound = {general: record_bound(device, general) for general in (False, True)}
         out: list[Sketch] = [_EMPTY] * len(lengths)
         paths, hosts = _plan(src, lengths, bound)
-        sc.add_count("general_records", len(paths[True]))
+        timers.count("sketch_route:general_records", len(paths[True]))
     with _stage("pack"):
         for i in hosts:
-            sc.max_count("codes_held_max", int(lengths[i]))
+            timers.count_max("sketch:codes_held_max", int(lengths[i]))
             out[i] = _host_sketch(src.codes(i), k, w)
-            sc.add_count("host_records")
-            sc.add_count("host_records_size")
+            timers.count("sketch_route:host_records")
     for general, entries in paths.items():
         batches = _batches(entries, k, min(BATCH_BASES, bound[general]))
         if batches:

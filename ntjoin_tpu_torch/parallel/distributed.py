@@ -16,8 +16,10 @@ exchange between processes is one ``all_to_all_single`` over gloo, which
 moves CPU tensors: the send and receive buffers cross the host, and that is
 the transport, not a fallback (NCCL, with a card a process, would keep them
 on the device).  With one process the exchange is a local permutation and
-no collective runs.  ``COUNTS`` records the bytes each exchange sent to
-other processes and the verdict's time on a card (CUDA events).
+no collective runs.  Each collective counts in ``dist:exchanges:<op>`` and
+the bytes it sent to other processes in ``dist:exchange_bytes:<op>``, and
+the verdict's time on a card (CUDA events) in ``dist:verdict_us`` (counters
+of ``utils/timers.py``).
 
 ``distributed_survive`` is the replicated oracle: every process gathers
 every entry and runs the same verdict.
@@ -32,21 +34,10 @@ import torch.distributed as dist
 
 from ntjoin_tpu_torch.ops.device_index import survive_verdict_sorted
 from ntjoin_tpu_torch.parallel.mesh import make_mesh
+from ntjoin_tpu_torch.utils import timers
 
 # A collective that waits longer than this fails instead of hanging.
 TIMEOUT_S = 300
-
-# exchanges: [collective, bytes this process sent to other processes], in
-# order; verdict_ms: the per-bucket verdict's device time, on a card.
-COUNTS: dict[str, list] = {}
-
-
-def reset_counts() -> None:
-    COUNTS.clear()
-    COUNTS.update(exchanges=[], verdict_ms=[])
-
-
-reset_counts()
 
 
 def shard_device(process_id: int, device: str | torch.device = "cuda") -> torch.device:
@@ -82,7 +73,8 @@ def world() -> tuple[int, int]:
 
 
 def _sent(op: str, nbytes: int) -> None:
-    COUNTS["exchanges"].append([op, int(nbytes)])
+    timers.count("dist:exchanges:" + op)
+    timers.count("dist:exchange_bytes:" + op, nbytes)
 
 
 def all_gather(x: torch.Tensor) -> torch.Tensor:
@@ -129,7 +121,7 @@ def exchange(send: torch.Tensor) -> torch.Tensor:
 
 def _timed_verdict(h, asm, dead, n_asm: int) -> torch.Tensor:
     """The verdict in place (the entries' order); its device time on a card
-    goes to ``COUNTS["verdict_ms"]``."""
+    goes to ``dist:verdict_us``."""
     on_card = h.device.type == "cuda"
     if on_card:
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -139,7 +131,7 @@ def _timed_verdict(h, asm, dead, n_asm: int) -> torch.Tensor:
     if on_card:
         b.record()
         b.synchronize()
-        COUNTS["verdict_ms"].append(a.elapsed_time(b))
+        timers.count("dist:verdict_us", round(a.elapsed_time(b) * 1000))
     return verdict
 
 

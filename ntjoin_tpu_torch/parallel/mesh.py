@@ -16,7 +16,9 @@ interior N run of any length shards exactly and no tile needs padding.
 Each device sketches all of its tiles in one ``sketch_records_torch`` call,
 one batch (the CUDA kernels on a card, the plain versions on the CPU); where
 the mesh names more than one device, each device's call runs in a thread of
-its own on a CUDA stream of its own.
+its own on a CUDA stream of its own.  Records split into tiles count in
+``mesh:sharded_records``, their tiles in ``mesh:tiles`` and the calls in
+``mesh:device_calls`` (counters of ``utils/timers.py``).
 
 Seam rule.  A tile's emission list is the per-window rule "emit the first
 window, then where the argmin moved" over exactly its ``lead + own``
@@ -38,24 +40,13 @@ import torch
 from ntjoin_tpu_torch.constants import CODE_INVALID
 from ntjoin_tpu_torch.ops.nthash_np import Sketch
 from ntjoin_tpu_torch.ops.sketch_records import sketch_records_torch
+from ntjoin_tpu_torch.utils import timers
 
 # Bases of records planned before their tiles are sketched (each device's
 # tiles in one call), the JAX package's in-flight bound; the same whatever
 # the devices.
 MAX_INFLIGHT_BASES = 256_000_000
 _SIGN = -(1 << 63)  # int64 bits of 1 << 63: x ^ _SIGN sorts as unsigned
-
-# Records split into tiles (``sharded_records``) and their tiles (``tiles``);
-# ``sketch_records_torch`` calls (``device_calls``), one a device a group.
-COUNTS: dict[str, int] = {}
-
-
-def reset_counts() -> None:
-    COUNTS.clear()
-    COUNTS.update(sharded_records=0, tiles=0, device_calls=0)
-
-
-reset_counts()
 _EMPTY = Sketch(np.empty(0, dtype=np.int64), np.empty(0, dtype=np.uint64))
 
 
@@ -146,8 +137,8 @@ def _plan(codes: np.ndarray, k: int, w: int, mesh: list[torch.device]):
     base_lo, base_hi, own = tiles
     pieces = [(d, codes[base_lo[d] : base_hi[d]], int(base_lo[d]))
               for d in range(len(mesh)) if own[d] > 0]
-    COUNTS["sharded_records"] += 1
-    COUNTS["tiles"] += len(pieces)
+    timers.count("mesh:sharded_records")
+    timers.count("mesh:tiles", len(pieces))
     return pieces
 
 
@@ -165,7 +156,7 @@ def _run(plans: list, k: int, w: int, mesh: list[torch.device]) -> list[Sketch]:
     for plan in plans:
         for shard, tile, _ in plan or ():
             work.setdefault(mesh[shard], []).append(tile)
-    COUNTS["device_calls"] += len(work)
+    timers.count("mesh:device_calls", len(work))
     if len(work) > 1:
         with ThreadPoolExecutor(len(work)) as ex:
             futs = {dev: ex.submit(_sketch_on, dev, tiles, k, w) for dev, tiles in work.items()}

@@ -27,9 +27,9 @@ from ntjoin_tpu_torch.core.assembly import AssemblySketch
 from ntjoin_tpu_torch.core.config import ScaffoldConfig
 from ntjoin_tpu_torch.core.scaffolder import Scaffolder
 from ntjoin_tpu_torch.io.native import FastaSource
-from ntjoin_tpu_torch.ops import sketch_cuda
 from ntjoin_tpu_torch.ops.sketch_records import Subset, sketch_records_torch
 from ntjoin_tpu_torch.parallel import distributed as pd
+from ntjoin_tpu_torch.utils import timers
 from ntjoin_tpu_torch.utils.atomic import atomic_write
 
 
@@ -73,17 +73,18 @@ def _pack_rows(x: np.ndarray, fill, n_rows: int, width: int) -> np.ndarray:
     return buf.reshape(n_rows, width)
 
 
-def distributed_assemble(cfg: DistributedConfig, sketch=None) -> dict:
+def distributed_assemble(cfg: DistributedConfig, sketch=None) -> None:
     """Run one process of the pipeline; process 0 writes the artifacts.
     ``sketch(source, k, w) -> list of Sketch`` sketches an assembly's
     share of records, a ``Subset`` of its ``FastaSource`` (default:
     ``sketch_records_torch`` on the shards' device, which encodes each of
     them into its batch buffer).  Joins the process group when
-    ``num_processes > 1`` and leaves it on success and on error.  Returns
-    this process's counts."""
+    ``num_processes > 1`` and leaves it on success and on error.  The
+    shards of every process count in ``dist:shards@<device type>``, and
+    what this process sketched and kept in ``dist:records``,
+    ``dist:entries`` and ``dist:survivors``."""
     if cfg.num_processes > 1 and cfg.coordinator is None:
         raise ValueError("n_procs>1 needs coordinator=<host:port> (the process group's address)")
-    pd.reset_counts()
     joined = cfg.num_processes > 1
     if joined:
         shards = pd.initialize(cfg.coordinator, cfg.num_processes, cfg.process_id,
@@ -94,13 +95,13 @@ def distributed_assemble(cfg: DistributedConfig, sketch=None) -> dict:
         if sketch is None:
             def sketch(src, k, w):
                 return sketch_records_torch(src, k, w, shards[0])
-        return _assemble(cfg, shards, sketch)
+        _assemble(cfg, shards, sketch)
     finally:
         if joined:
             dist.destroy_process_group()
 
 
-def _assemble(cfg: DistributedConfig, shards: list[torch.device], sketch) -> dict:
+def _assemble(cfg: DistributedConfig, shards: list[torch.device], sketch) -> None:
     k, w = cfg.k, cfg.w
     dev, n_local = shards[0], len(shards)
     fastas = list(cfg.references) + [cfg.target]
@@ -139,12 +140,12 @@ def _assemble(cfg: DistributedConfig, shards: list[torch.device], sketch) -> dic
     # every process's surviving entries, to process 0
     h_g, asm_g, ctg_g, pos_g = pd.gather_ragged(
         torch.from_numpy(np.stack([h_l[mine], asm_l[mine], ctg_l[mine], pos_l[mine]]))).numpy()
-    counts = {"process_id": cfg.process_id, "device": str(dev), "shards": n_local,
-              "n_shards": n_shards, "records": n_records, "entries": n_loc,
-              "survivors": int(mine.sum()), "width": width, "bucket_width": bw,
-              "sketch_counts": dict(sketch_cuda.COUNTS), **pd.COUNTS}
+    timers.count(f"dist:shards@{dev.type}", n_shards)
+    timers.count("dist:records", n_records)
+    timers.count("dist:entries", n_loc)
+    timers.count("dist:survivors", int(mine.sum()))
     if cfg.process_id != 0:
-        return counts
+        return
 
     tsvs = [f"{fa}.k{k}.w{w}.tsv" for fa in fastas]
     weights = list(cfg.reference_weights) + [cfg.target_weight]
@@ -161,4 +162,3 @@ def _assemble(cfg: DistributedConfig, shards: list[torch.device], sketch) -> dic
                         n=cfg.n, k=k, w=w, **cfg.scaffold_opts)
     Scaffolder(sc, sketch_cache=cache, device=dev).run()
     write_all_scaffolds(cfg.target, k, w, cfg.n)
-    return counts

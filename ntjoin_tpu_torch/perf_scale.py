@@ -31,7 +31,7 @@ the run's own.  A run on a card adds ``cuda_init_s`` and
 ``rss_cuda_init_gb`` (the first CUDA context, made before the run, and the
 resident set just after it),
 ``device_peak_gb`` (``torch.cuda.max_memory_allocated`` over the run),
-``device``, the run's ``sketch_counts`` and ``index_counts``, and
+``device``, the run's counters (``utils/timers.COUNTERS``), and
 ``sketch_stages_s``, the host clock of ``sketch_records_torch`` by stage
 (``plan``: each record's path read from its codes).  A
 sampler thread reads the resident set every ``utils/timers.SAMPLE_S``
@@ -298,7 +298,7 @@ def main(argv: list[str] | None = None) -> int:
     print(f"[inputs] {args.mbp} Mbp generated in {time.perf_counter() - t0:.1f}s", flush=True)
 
     from ntjoin_tpu_torch import cli
-    from ntjoin_tpu_torch.ops import device_index, sketch_cuda, sketch_records
+    from ntjoin_tpu_torch.ops import sketch_records
 
     out = {"rss_inherited_gb": inherited}
     if on_card:
@@ -308,7 +308,6 @@ def main(argv: list[str] | None = None) -> int:
         out["cuda_init_s"] = time.perf_counter() - t0
         out["rss_cuda_init_gb"] = (status_kb("VmRSS") or peak_rss_kb()) / 1e6
         torch.cuda.reset_peak_memory_stats()
-    sketch_cuda.reset_counts()
     sketch_records.STAGES.clear()
     # artifact names are prefix + "." + target TSV name: relative paths, as
     # the reference's Makefile runs them
@@ -342,9 +341,8 @@ def main(argv: list[str] | None = None) -> int:
     if on_card:
         result.update(device_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                       device=torch.cuda.get_device_name(0),
-                      sketch_counts=dict(sketch_cuda.COUNTS),
-                      sketch_stages_s=dict(sketch_records.STAGES),
-                      index_counts=device_index.counts_report())
+                      counters=dict(timers.COUNTERS),
+                      sketch_stages_s=dict(sketch_records.STAGES))
     print(json.dumps(result), flush=True)
     if not args.keep:
         shutil.rmtree(workdir, ignore_errors=True)

@@ -19,7 +19,7 @@ needs a GPU; ``--device cpu`` runs the kernels' plain versions).  Measured:
   on 8 x 4,096 seeded entries (three assemblies, ``verdict_inputs``): verdicts equal, each
   shard's buffer against the replicated one, both walls (host clock around
   a synchronised call, the least of three after one warm-up) and, on
-  a card, the verdict's device time (``COUNTS["verdict_ms"]``);
+  a card, the verdict's device time (counter ``dist:verdict_us``);
 * ``crossover``: the same at every width of ``--widths`` (entries a
   shard), and the first width at which the sharded verdict is no slower
   than the replicated one, or null if it is slower at every width.
@@ -42,6 +42,7 @@ import torch
 from ntjoin_tpu_torch.ops.nthash_np import sketch_codes
 from ntjoin_tpu_torch.parallel import distributed as pd
 from ntjoin_tpu_torch.parallel.mesh import _tile_record, make_mesh, sketch_sharded
+from ntjoin_tpu_torch.utils import timers
 
 K, W = 32, 250
 N_SHARDS = 8
@@ -81,6 +82,17 @@ def _walls(fn, device: torch.device) -> list[float]:
         _sync(device)
         out.append(time.perf_counter() - t0)
     return sorted(out)
+
+
+def _verdict_ms(fn, ms: list[float]):
+    """``fn`` recording each call's ``dist:verdict_us``, on a card, into
+    ``ms`` as milliseconds."""
+    def call():
+        with timers.recording(True):
+            fn()
+        if "dist:verdict_us" in timers.COUNTERS:
+            ms.append(timers.COUNTERS["dist:verdict_us"] / 1e3)
+    return call
 
 
 def balance_table(codes: np.ndarray, device: str) -> dict:
@@ -130,12 +142,11 @@ def verdict_cell(width: int, device: str) -> dict:
     replicated = pd.distributed_survive(*rows, N_ASM)
     if not torch.equal(sharded.cpu(), replicated.cpu()):
         raise RuntimeError(f"sharded and replicated verdicts differ at width {width}")
-    pd.reset_counts()
-    sharded_walls = _walls(lambda: pd.distributed_survive_sharded(*rows, N_ASM, bw), dev)
-    sharded_ms = pd.COUNTS["verdict_ms"]
-    pd.reset_counts()
-    replicated_walls = _walls(lambda: pd.distributed_survive(*rows, N_ASM), dev)
-    replicated_ms = pd.COUNTS["verdict_ms"]
+    sharded_ms, replicated_ms = [], []
+    sharded_walls = _walls(_verdict_ms(
+        lambda: pd.distributed_survive_sharded(*rows, N_ASM, bw), sharded_ms), dev)
+    replicated_walls = _walls(_verdict_ms(
+        lambda: pd.distributed_survive(*rows, N_ASM), replicated_ms), dev)
     n_el = h.size
     return {
         "total_entries": n_el,

@@ -18,6 +18,37 @@ full name is its parent's, ``/`` and its own (``sketch:ref1.fa/pack``,
 While a ``torch.profiler`` records, every stage and span open is marked in
 its trace as ``stage:<full name>`` (``OPEN``), on the clock of the device
 events.
+
+``COUNTERS`` is the port's only count store.  A counter is named
+``<layer>:<name>``, with ``@<device type>`` last where the op runs on the
+device it is given:
+
+* ``launch:<kernel>``: CUDA kernel launches (``hash``, ``flags`` three a
+  call, ``window_emit``, ``window_emit_gmem``, ``window``, ``copy``,
+  ``stream`` four a batch, ``mk_s`` one or two a batch), and
+  ``launch:<op>_plain`` the calls of an op's plain version;
+* ``sketch_route:<route>``: records and batches of ``sketch_records_torch``
+  by route (``host_records``, ``general_records``, ``general_batches``) and
+  calls that took the exact window path (``exact_runs``);
+  ``sketch:codes_held_max`` (``count_max``) the most code bytes one call
+  held at once;
+* ``graph:<op>@<device type>``: runs of a graph op (``shared_filter``,
+  ``edge_tally``, ``cc``, ``escalate``, ``rank``), ``graph:cc_rounds`` the
+  hooking rounds of connected components, one sync each;
+* ``mk:batches@<device type>``, ``mk:runs@<device type>``: the
+  Mann-Kendall op's batches and the runs they held;
+* ``mesh:sharded_records``, ``mesh:tiles``, ``mesh:device_calls``: records
+  split over a mesh, their tiles, and ``sketch_records_torch`` calls;
+* ``dist:exchanges:<collective>`` and ``dist:exchange_bytes:<collective>``:
+  a process's collectives and the bytes it sent to other processes,
+  ``dist:verdict_us`` the verdict's device time on a card,
+  ``dist:shards@<device type>`` the shards of every process, and
+  ``dist:records``, ``dist:entries``, ``dist:survivors`` what the process
+  sketched and kept.
+
+The counters that the benchmark's metrics read keep names without a
+prefix: ``fai_rescans``, ``minimizers``, ``graph_edges``,
+``path_minimizers``, ``trim_sketch_bases`` and ``tsv_fallback_records``.
 """
 from __future__ import annotations
 
@@ -105,7 +136,8 @@ _OFF = contextlib.nullcontext()
 @contextlib.contextmanager
 def recording(on: bool):
     """Spans and counters on (``on``) or off inside the block, from none;
-    the setting before is restored after it."""
+    the setting before is restored after it, and what the block recorded
+    stays readable until the next block starts."""
     global ON
     was = ON
     SPANS.clear()
@@ -191,11 +223,19 @@ def timed(name: str) -> Span:
     return Span(name, _recorded())
 
 
-def count(name: str, n: int) -> None:
+def count(name: str, n: int = 1) -> None:
     """Add ``n`` to counter ``name`` (from any thread); off, nothing."""
     if ON:
         with _COUNT_LOCK:
             COUNTERS[name] = COUNTERS.get(name, 0) + int(n)
+
+
+def count_max(name: str, value: int) -> None:
+    """Raise counter ``name`` to ``value`` where it is lower (from any
+    thread); off, nothing."""
+    if ON:
+        with _COUNT_LOCK:
+            COUNTERS[name] = max(COUNTERS.get(name, 0), int(value))
 
 
 def trace_counts() -> dict:

@@ -1,10 +1,9 @@
 """The port's measurement programs on the CPU: ``perf_scale``'s inputs byte
 for byte those of ``scripts/perf_scale.py`` and its artifacts those of
 ``ntjoin_tpu.cli``; ``scaling_proxy``'s tiling and verdicts against the JAX
-package's; the refusals of ``bench``, ``perf_scale`` and ``scaling_proxy``
-without a card; the bench's headline arithmetic, its idle-share interval
-union, its artifact comparison and its 30 Mbp cell's generator.  Integer
-and byte outputs: every comparison is exact."""
+package's; the refusals of ``perf_scale`` and ``scaling_proxy`` without a
+card; ``split_bench``'s idle-share interval union.  Integer and byte
+outputs: every comparison is exact."""
 import importlib.util
 import json
 import os
@@ -19,7 +18,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from ntjoin_tpu.parallel import distributed as jax_dist
 from ntjoin_tpu.parallel.mesh import _tile_record as jax_tile_record
 from ntjoin_tpu.parallel.mesh import make_mesh as jax_make_mesh
-from ntjoin_tpu_torch import bench, perf_scale, scaling_proxy, split_bench
+from ntjoin_tpu_torch import perf_scale, scaling_proxy, split_bench
 from ntjoin_tpu_torch.utils import timers
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -184,7 +183,7 @@ def test_proxy_verdict_matches_jax(width):
     assert got.tolist() == want.tolist() and got.sum() > 0
 
 
-@pytest.mark.parametrize("module", ["bench", "perf_scale", "scaling_proxy"])
+@pytest.mark.parametrize("module", ["perf_scale", "scaling_proxy"])
 def test_refuses_without_cuda(module):
     res = subprocess.run([sys.executable, "-m", f"ntjoin_tpu_torch.{module}"], cwd=REPO,
                          capture_output=True, text=True,
@@ -192,46 +191,6 @@ def test_refuses_without_cuda(module):
     assert res.returncode != 0
     assert "no CUDA device" in res.stderr
     assert res.stdout == ""
-
-
-def _canned(full: bool) -> dict:
-    cells = {"device": "card", "baseline_bases": 1 << 24, "fused_bases": 1 << 27,
-             "baseline_s": [0.08, 0.05, 0.1],
-             "fused": {1000: {"ms_trials": [2.5, 2.0, 3.0], "per_call_ms": [2.1, 2.2],
-                              "emissions": 7}},
-             "parity": {"equal": True}, "mode": "full" if full else "quick"}
-    if full:
-        cells["fused"][5000] = {"ms_trials": [4.0, 4.0, 5.0], "per_call_ms": [4.1],
-                                "emissions": 3}
-        for name, walls in (("multi", [0.5, 0.25, 1.0]), ("general", [2.0, 1.0, 4.0])):
-            cells[name] = {"wall_s": walls, "records": 68, "stages_s": {"pack": 0.1}}
-        cells["scale3"] = {"e2e_s": 300.5, "rss_gb": 20.25, "rc": 0}
-    return cells
-
-
-@pytest.mark.parametrize("full", [False, True])
-def test_headline_arithmetic(full):
-    detail, head = bench.summarize(_canned(full))
-    assert tuple(head) == bench.HEADLINE_KEYS
-    assert head["metric"] == "minimizer_sketch_throughput" and head["unit"] == "Gbp/s"
-    value = (1 << 27) / 2.0e-3 / 1e9  # bases over the least of the trials
-    baseline = (1 << 24) / 0.05 / 1e9
-    assert head["value"] == pytest.approx(value, rel=1e-12)
-    assert detail["baseline_gbps"] == pytest.approx(baseline, rel=1e-12)
-    assert head["vs_baseline"] == pytest.approx(value / baseline, rel=1e-12)
-    assert detail["fused_w1000"]["ms"] == {"min": 2.0, "median": 2.5, "n": 3}
-    assert detail["parity"] == {"equal": True} and head["device"] == "card"
-    if full:
-        assert head["multi_record_gbps"] == pytest.approx((1 << 27) / 0.25 / 1e9, rel=1e-12)
-        assert head["general_n_rich_gbps"] == pytest.approx((1 << 27) / 1.0 / 1e9, rel=1e-12)
-        assert (head["e2e_scaffold_3gbp_wall_s"], head["e2e_scaffold_3gbp_rss_gb"]) == \
-            (300.5, 20.25)
-        assert detail["fused_w5000"]["gbps"] == pytest.approx((1 << 27) / 4.0e-3 / 1e9)
-        assert detail["general"]["stages_s"] == {"pack": 0.1}
-    else:
-        assert head["multi_record_gbps"] is head["general_n_rich_gbps"] is None
-        assert head["e2e_scaffold_3gbp_wall_s"] is head["e2e_scaffold_3gbp_rss_gb"] is None
-    json.dumps(detail)
 
 
 @pytest.mark.parametrize("spans,busy", [
@@ -243,57 +202,6 @@ def test_headline_arithmetic(full):
 ])
 def test_busy_is_a_union(spans, busy):
     assert split_bench.busy_us([(lo, hi, [1, 1, 1], "k", "kernel") for lo, hi in spans]) == busy
-
-
-def test_same_artifacts(tmp_path):
-    got, want = tmp_path / "got", tmp_path / "want"
-    for d in (got, want):
-        d.mkdir()
-        (d / "out.path").write_text("ntJoin0\tc+:0-9\n")
-        (d / "x.fa").write_text(">a\nACGT\n")
-    (got / "out.scaffold.time").write_text("stage\tscaffold\n")  # timings are not compared
-    assert bench.same_artifacts(str(got), str(want)) == 2
-    (got / "x.fa").write_text(">a\nACGA\n")
-    with pytest.raises(bench.BenchError, match="x.fa differs"):
-        bench.same_artifacts(str(got), str(want))
-    (got / "x.fa").write_text(">a\nACGT\n")
-    (got / "extra.tsv").write_text("")
-    with pytest.raises(bench.BenchError, match="extra.tsv"):
-        bench.same_artifacts(str(got), str(want))
-
-
-def test_cell_inputs_match_the_jax_bench(tmp_path):
-    """``write_cell_inputs`` gives the bytes of ``bench.py``'s ``bench_e2e``
-    generator (its lines 234-249, here at 2 Mbp)."""
-    bench.write_cell_inputs(str(tmp_path), mbp=2)
-    n = 2_000_000
-    rng = np.random.default_rng(7)
-    genome = np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, size=n)].tobytes().decode()
-    rc = str.maketrans("ACGT", "TGCA")
-    ref = "".join(f">r{i}\n{genome[i:i + 5_000_000]}\n" for i in range(0, n, 5_000_000))
-    target = []
-    for j, i in enumerate(range(0, n, 50_000)):
-        seg = genome[i : i + 50_000]
-        if j % 3 == 2:
-            seg = seg[::-1].translate(rc)
-        target.append(f">t{j}\n{seg}\n")
-    assert (tmp_path / "ref.fa").read_text() == ref
-    assert (tmp_path / "target.fa").read_text() == "".join(target)
-
-
-def test_stage_walls():
-    out = ("log\nstage\twall_s\tpeak_rss_kb\nsketch:ref.fa\t0.5\t100\nscaffold\t1.25\t200\n"
-           "sketch_counts\t{\"hash\": 1}\n")
-    assert bench.stage_walls(out) == {"sketch:ref.fa": 0.5, "scaffold": 1.25}
-    assert bench.stage_walls("no table\n") == {}
-
-
-def test_disk_needed_at_3gbp():
-    """Three FASTAs of 3 Gbp at 81 bytes a line of 80, two scaffold FASTAs,
-    a byte a base of TSVs and DOT, a twentieth to spare: ~19 GB, above the
-    17.3 GB such a run wrote on the GPU machine."""
-    assert bench.disk_needed(3000, 2) == pytest.approx((3e9 * 81 / 80 * 5 + 3e9) * 1.05)
-    assert 17.3e9 < bench.disk_needed(3000, 2) < 20e9
 
 
 def test_peak_rss_is_the_process_own():

@@ -7,8 +7,8 @@ import pytest
 from ntjoin_tpu.graph.mingraph import MinimizerGraph, _pointer_jump_cc
 from ntjoin_tpu.ops.cc_jax import connected_components_device
 from ntjoin_tpu_torch.graph.mingraph import DeviceMinimizerGraph
-from ntjoin_tpu_torch.ops import device_index as di
 from ntjoin_tpu_torch.ops.cc import connected_components
+from ntjoin_tpu_torch.utils import timers
 
 
 @pytest.mark.parametrize("seed", [3, 4])
@@ -19,9 +19,10 @@ def test_random_sparse_graph(seed):
     src = rng.integers(0, n, m).astype(np.int32)
     dst = rng.integers(0, n, m).astype(np.int32)
     host = MinimizerGraph(n, src, dst, np.ones(m), np.ones(m, np.int64)).components()
-    di.reset_counts()
-    got = connected_components(n, src, dst, "cpu")
-    assert di.COUNTS["cc"] == 1 and di.DEVICES["cc"] == "cpu" and di.COUNTS["cc_rounds"] >= 2
+    with timers.recording(True):
+        got = connected_components(n, src, dst, "cpu")
+        counts = timers.trace_counts()["counters"]
+    assert counts["graph:cc@cpu"] == 1 and counts["graph:cc_rounds"] >= 2
     assert got.tolist() == host.tolist()
     assert got.tolist() == connected_components_device(n, src, dst).tolist()
     assert got.tolist() == _pointer_jump_cc(n, src, dst).tolist()
@@ -55,9 +56,10 @@ def test_graph_components_use_the_port():
     src = np.array([0, 1, 3], np.int32)
     dst = np.array([1, 2, 4], np.int32)
     g = DeviceMinimizerGraph(6, src, dst, np.ones(3), np.ones(3, np.int64), device="cpu")
-    di.reset_counts()
-    assert g.components().tolist() == [0, 0, 0, 1, 1, 2]
-    g.alive[1] = False
-    assert g.components().tolist() == [0, 0, 1, 2, 2, 3]
-    assert g.components(np.zeros(3, bool)).tolist() == list(range(6))
-    assert di.COUNTS["cc"] == 3
+    with timers.recording(True):
+        assert g.components().tolist() == [0, 0, 0, 1, 1, 2]
+        g.alive[1] = False
+        assert g.components().tolist() == [0, 0, 1, 2, 2, 3]
+        assert g.components(np.zeros(3, bool)).tolist() == list(range(6))
+        counts = timers.trace_counts()["counters"]
+    assert counts["graph:cc@cpu"] == 3

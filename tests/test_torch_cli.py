@@ -77,11 +77,14 @@ def test_port_cli_matches_jax_cli(tmp_path, fixture, prefix, extra, index_backen
                           f"index_backend={index_backend}"],
                          cwd=port, env=env, capture_output=True, text=True)
     assert res.returncode == 0, res.stderr + res.stdout
-    counts = json.loads(next(ln for ln in res.stdout.splitlines()
-                             if ln.startswith("index_counts\t")).split("\t", 1)[1])
-    for op in ("shared_filter", "edge_tally", "cc", "escalate", "rank"):
-        want = (None, 0) if index_backend == "host" else ("cpu", 1 + (op == "cc"))
-        assert (counts[op]["device"], counts[op]["launches"]) == want, op
+    counts = _counts(res.stdout, "trace_counts")["counters"]
+    graph = {name: n for name, n in counts.items() if name.startswith("graph:")}
+    if index_backend == "host":
+        assert graph == {}, graph
+    else:
+        for op in ("shared_filter", "edge_tally", "cc", "escalate", "rank"):
+            assert graph[f"graph:{op}@cpu"] == 1 + (op == "cc"), op
+        assert graph["graph:cc_rounds"] >= 1 and len(graph) == 6, graph
     res = subprocess.run([sys.executable, "-m", "ntjoin_tpu.cli", *args, "backend=numpy",
                           "index_backend=host"], cwd=ref, env=env, capture_output=True, text=True)
     assert res.returncode == 0, res.stderr + res.stdout
@@ -130,7 +133,7 @@ def _counts(stdout: str, key: str) -> dict:
 ])
 def test_assemble_mkt_matches_jax_cli(tmp_path, fixture, extra, words):
     """``mkt=True``: every artifact byte-equal to ``ntjoin_tpu.cli``'s, the
-    Mann-Kendall op on the CPU (``mk_counts``) wherever a run is not
+    Mann-Kendall op on the CPU (``mk:runs@cpu``) wherever a run is not
     monotonic."""
     port, ref = tmp_path / "port", tmp_path / "ref"
     for d in (port, ref):
@@ -140,9 +143,9 @@ def test_assemble_mkt_matches_jax_cli(tmp_path, fixture, extra, words):
             "k=32", "n=2", "mkt=True", "prefix=mk", *extra]
     res = _run_cli(["-c", _PORT], args + words + ["time=True"], port)
     _run_cli(["-m", "ntjoin_tpu.cli"], args + ["backend=numpy", "index_backend=host"], ref)
-    counts = _counts(res.stdout, "mk_counts")
+    counts = _counts(res.stdout, "trace_counts")["counters"]
     if fixture is _swapped_blocks:
-        assert counts["mk_runs"] >= 4 and counts["device"] == "cpu", counts
+        assert counts["mk:runs@cpu"] >= 4 and "mk:runs@cuda" not in counts, counts
     made = sorted(p.name for p in ref.iterdir())
     assert "mk.path" in made and len(made) >= 11
     for name in made:
@@ -173,12 +176,10 @@ def test_port_host_backends_match_jax_cli(tmp_path, fixture, prefix, extra, back
     words = [f"backend={backend}", "index_backend=host"]
     _run_cli(["-m", "ntjoin_tpu.cli"], args + words, dirs["jax"])
     res = _run_cli(["-c", _PORT], args + words + ["time=True"], dirs["port"])
-    sketch = json.loads(next(ln for ln in res.stdout.splitlines()
-                             if ln.startswith("sketch_counts\t")).split("\t", 1)[1])
-    index = json.loads(next(ln for ln in res.stdout.splitlines()
-                            if ln.startswith("index_counts\t")).split("\t", 1)[1])
-    assert not any(v for key, v in sketch.items()), sketch  # no kernel, no plain version
-    assert not any(index[op]["launches"] for op in index if op != "cc_rounds"), index
+    counts = _counts(res.stdout, "trace_counts")["counters"]
+    # no kernel, no plain version, no device sketch and no torch graph op
+    assert not [name for name in counts
+                if name.startswith(("launch:", "sketch_route:", "sketch:", "graph:"))], counts
     _run_cli(["-c", _PORT], args + ["backend=torch", "device=cpu"], dirs["torch"])
     made = sorted(p.name for p in dirs["jax"].iterdir())
     assert f"{prefix}.path" in made and "target.fa.k32.w250.n2.all.scaffolds.fa" in made
@@ -227,12 +228,10 @@ def test_refusals(tmp_path, capsys, monkeypatch, word, item):
     assert not list(tmp_path.iterdir())
 
 
-def test_mesh_branch_matches_one_device(tmp_path, monkeypatch):
+def test_mesh_branch_matches_one_device(tmp_path, monkeypatch, capsys):
     """``_mesh`` handing four CPU shards: each record's sketch is tiled
     (``parallel/mesh.py``) and every artifact is byte-equal to the
     one-device run's."""
-    from ntjoin_tpu_torch.parallel import mesh
-
     args = ["assemble", "-B", *_COMMON, "prefix=m", "agp=True", "backend=torch"]
     for name in ("one", "mesh"):
         (tmp_path / name).mkdir()
@@ -242,12 +241,14 @@ def test_mesh_branch_matches_one_device(tmp_path, monkeypatch):
     assert cli.main(args) == 0
     monkeypatch.chdir(tmp_path / "mesh")
     monkeypatch.setattr(cli, "_mesh", lambda v: ["cpu"] * 4)
-    mesh.reset_counts()
-    assert cli.main(args) == 0
-    assert mesh.COUNTS["sharded_records"] >= 24 and mesh.COUNTS["tiles"] >= 4 * 24
+    capsys.readouterr()
+    assert cli.main(args + ["time=True"]) == 0
+    counts = _counts(capsys.readouterr().out, "trace_counts")["counters"]
+    assert counts["mesh:sharded_records"] >= 24 and counts["mesh:tiles"] >= 4 * 24
     made = sorted(p.name for p in (tmp_path / "one").iterdir())
     assert "m.path" in made and "target.fa.k32.w250.tsv" in made
-    assert sorted(p.name for p in (tmp_path / "mesh").iterdir()) == made
+    assert sorted(p.name for p in (tmp_path / "mesh").iterdir()
+                  if not p.name.endswith(".time")) == made
     for name in made:
         assert (tmp_path / "mesh" / name).read_bytes() == (tmp_path / "one" / name).read_bytes(), name
 

@@ -3,6 +3,7 @@ and ``pipeline.py``) on the CPU: the hash-bucket verdict bit-equal to the
 JAX package's ``distributed_survive_sharded`` in one process and in two gloo
 processes, int64 survivors through the exchange, and a two-process
 ``assemble`` byte-equal to the one-process runs of both packages."""
+import json
 import os
 import socket
 import subprocess
@@ -19,6 +20,7 @@ from ntjoin_tpu.parallel import distributed as jax_dist
 from ntjoin_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from ntjoin_tpu_torch.parallel import distributed as pd
 from ntjoin_tpu_torch.parallel.pipeline import DistributedConfig, distributed_assemble
+from ntjoin_tpu_torch.utils import timers
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_ASM = 3
@@ -67,13 +69,14 @@ def test_sharded_verdict_matches_jax_in_one_process(n_shards):
     width = h.shape[0] // n_shards
     rows = [torch.from_numpy(x.reshape(n_shards, width)) for x in (h, asm, alive)]
     bw = pd.bucket_width_for_rows(rows[0].numpy(), rows[2].numpy(), n_shards)
-    pd.reset_counts()
-    got = pd.distributed_survive_sharded(*rows, N_ASM, bw).reshape(-1).numpy()
+    with timers.recording(True):
+        got = pd.distributed_survive_sharded(*rows, N_ASM, bw).reshape(-1).numpy()
+        counts = timers.trace_counts()["counters"]
     want, replicated, jax_bw = _jax_verdicts(n_shards)
     assert bw == jax_bw
     assert got.tolist() == want.tolist() == replicated.tolist()
     assert pd.distributed_survive(*rows, N_ASM).numpy().tolist() == replicated.tolist()
-    assert got.sum() > 100 and pd.COUNTS["exchanges"] == []  # no collective
+    assert got.sum() > 100 and not [n for n in counts if n.startswith("dist:")]  # no collective
     assert n_shards * bw < 2 * h.shape[0] // n_shards + 64  # O(total / shards) a shard
 
 
@@ -82,6 +85,7 @@ import sys
 import numpy as np
 import torch
 from ntjoin_tpu_torch.parallel import distributed as pd
+from ntjoin_tpu_torch.utils import timers
 
 pid, port, rows_file, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
 shards = pd.initialize(f"127.0.0.1:{port}", 2, pid, local_device_count=4, device="cpu")
@@ -91,15 +95,16 @@ try:
     h, asm, alive = (torch.from_numpy(data[x][mine]) for x in ("h", "asm", "alive"))
     local_bw = pd.bucket_width_for_rows(h.numpy(), alive.numpy(), 8)
     bw = int(pd.all_gather(torch.tensor([local_bw])).max())
-    sharded = pd.distributed_survive_sharded(h, asm, alive, 3, bw)
+    with timers.recording(True):
+        sharded = pd.distributed_survive_sharded(h, asm, alive, 3, bw)
+        a2a = timers.trace_counts()["counters"].get("dist:exchanges:all_to_all", 0)
     replicated = pd.distributed_survive(h, asm, alive, 3)
     m = 5 + 3 * pid  # survivors of unequal counts, positions from 2^31 up
     pos = (1 << 31) + np.arange(m, dtype=np.int64) * (1 << 33) + pid
     cols = np.stack([np.full(m, -7 - pid, dtype=np.int64), pos])
     gathered = pd.gather_ragged(torch.from_numpy(cols))
-    ops = [op for op, _ in pd.COUNTS["exchanges"]]
     np.savez(out, sharded=sharded.numpy(), replicated=replicated.numpy(),
-             gathered=gathered.numpy(), shards=len(shards), a2a=ops.count("all_to_all"))
+             gathered=gathered.numpy(), shards=len(shards), a2a=a2a)
 finally:
     torch.distributed.destroy_process_group()
 """
@@ -187,10 +192,17 @@ def test_two_process_assemble_matches_one_process(tmp_path, fixture):
         want = (dirs["jax"] / name).read_bytes()
         assert (dirs["dist"] / name).read_bytes() == want, name
         assert (dirs["port"] / name).read_bytes() == want, name
-    for pid, out in enumerate(outs):
-        line = next(ln for ln in out.splitlines() if ln.startswith("dist_counts\t"))
-        assert f'"process_id": {pid}' in line and '"n_shards": 4' in line
-        assert '"all_to_all"' in line and '"hash_plain"' in line
+    records = 0
+    for out in outs:
+        assert not [ln for ln in out.splitlines() if ln.startswith("dist_counts\t")]
+        line = next(ln for ln in out.splitlines() if ln.startswith("trace_counts\t"))
+        counts = json.loads(line.split("\t", 1)[1])["counters"]
+        assert counts["dist:shards@cpu"] == 4  # local_devices=2 on each of 2 processes
+        assert counts["dist:exchanges:all_to_all"] == 2
+        assert counts["dist:exchange_bytes:all_to_all"] > 0 and counts["launch:hash_plain"] > 0
+        records += counts["dist:records"]
+    assert records == sum(open(dirs["port"] / fa).read().count(">")
+                          for fa in ("ref.fa", "target.fa"))
 
 
 def test_source_fed_pipeline_matches_codes_fed(tmp_path, monkeypatch):
@@ -214,15 +226,18 @@ def test_source_fed_pipeline_matches_codes_fed(tmp_path, monkeypatch):
                                 reference_weights=[2.0], prefix="d", k=32, w=250, n=2,
                                 local_device_count=2, device="cpu",
                                 scaffold_opts={"agp": True, "index_backend": "host"})
-        counts[name] = distributed_assemble(cfg, sketch)
+        with timers.recording(True):
+            distributed_assemble(cfg, sketch)
+            counts[name] = timers.trace_counts()["counters"]
     made = sorted(p.name for p in (tmp_path / "codes").iterdir())
     assert "d.path" in made and "target.fa.k32.w250.n2.all.scaffolds.fa" in made
     assert sorted(p.name for p in (tmp_path / "source").iterdir()) == made
     for name in made:
         assert (tmp_path / "source" / name).read_bytes() == \
             (tmp_path / "codes" / name).read_bytes(), name
-    for key in ("records", "entries", "survivors"):
+    for key in ("dist:records", "dist:entries", "dist:survivors"):
         assert counts["source"][key] == counts["codes"][key] > 0, key
+    assert counts["source"]["dist:shards@cpu"] == counts["codes"]["dist:shards@cpu"] == 2
 
 
 def test_pipeline_refuses_processes_without_a_coordinator():

@@ -23,9 +23,9 @@ from ntjoin_tpu.utils.timers import StageTimers as JaxTimers
 from ntjoin_tpu_torch import cli
 from ntjoin_tpu_torch.io import native
 from ntjoin_tpu_torch.io.fasta import write_fai
-from ntjoin_tpu_torch.ops import sketch_cuda as sc
 from ntjoin_tpu_torch.ops import sketch_records as sr
 from ntjoin_tpu_torch.utils.timers import StageTimers
+from ntjoin_tpu_torch.utils import timers
 
 K, W = 32, 100
 _IUPAC = np.frombuffer(b"RYKMSWBDHVN", dtype=np.uint8)
@@ -151,11 +151,13 @@ def test_sketch_stage_matches_jax_cli(tmp_path, monkeypatch, backend, reader):
     sketch = cli._sketcher(backend, "cpu")
     if reader == "python":
         monkeypatch.setattr(native, "_load", lambda: None)
-    sc.reset_counts()
-    tsv, got = cli._ensure_sketch(str(port / "a.fa"), K, W, True, sketch, StageTimers())
+    with timers.recording(True):
+        tsv, got = cli._ensure_sketch(str(port / "a.fa"), K, W, True, sketch, StageTimers())
+        counts = timers.trace_counts()["counters"]
     if backend == "torch":
-        assert sc.COUNTS["host_records"] == 1 and sc.COUNTS["general_records"] > 5
-        assert sc.COUNTS["general_batches"] >= 2 and sc.COUNTS["hash_plain"] >= 4
+        assert counts["sketch_route:host_records"] == 1
+        assert counts["sketch_route:general_records"] > 5
+        assert counts["sketch_route:general_batches"] >= 2 and counts["launch:hash_plain"] >= 4
     jtsv, want = jax_cli._ensure_sketch(str(ref / "a.fa"), K, W, True, jax_np.sketch_codes,
                                         JaxTimers())
     assert open(tsv, "rb").read() == open(jtsv, "rb").read()
@@ -228,16 +230,16 @@ def test_codes_held_max_is_one_batch_a_path(tmp_path, monkeypatch):
     recs = _stage_assembly(np.random.default_rng(13))
     _write_fasta(tmp_path / "a.fa", recs, 60)
     _patch_batches(monkeypatch)
-    sc.reset_counts()
-    with native.FastaSource(str(tmp_path / "a.fa")) as src:
+    with timers.recording(True), native.FastaSource(str(tmp_path / "a.fa")) as src:
         sr.sketch_records_torch(src, K, W, "cpu")
+        held = timers.trace_counts()["counters"]["sketch:codes_held_max"]
         codes = [src.codes(i) for i in range(len(src))]
     total = sum(c.shape[0] + K - 1 for c in codes)
     batch = max(sr.stream_len(t, K, W) for streams in _expected_batches(codes, K, W).values()
                 for _, t, _ in streams)
     host = max(c.shape[0] for c in codes if c.shape[0] > _BOUNDS[bool((c >= 4).any())])
     probe = min(max(c.shape[0] for c in codes), native.PROBE_BASES)
-    assert sc.COUNTS["codes_held_max"] == max(batch, host, probe)
+    assert held == max(batch, host, probe)
     assert batch > sr.BATCH_BASES // 2 and max(batch, host, probe) < total / 3
 
 
@@ -250,7 +252,6 @@ def test_sketch_stage_holds_under_a_byte_a_base(tmp_path, monkeypatch, backend):
     if backend == "native" and not native.available():
         pytest.skip("no g++ to build the native library")
     monkeypatch.setattr(sr, "BATCH_BASES", 1 << 20)
-    sc.reset_counts()
     rng = np.random.default_rng(3)
     recs = [_UPPER[rng.integers(0, 4, size=50_000)] for _ in range(80)]
     _write_fasta(tmp_path / "a.fa", recs, 80)
@@ -259,14 +260,16 @@ def test_sketch_stage_holds_under_a_byte_a_base(tmp_path, monkeypatch, backend):
     tracemalloc.start()
     try:
         tracemalloc.reset_peak()
-        _, got = cli._ensure_sketch(str(tmp_path / "a.fa"), K, 1000, True, sketch,
-                                    StageTimers())
+        with timers.recording(True):
+            _, got = cli._ensure_sketch(str(tmp_path / "a.fa"), K, 1000, True, sketch,
+                                        StageTimers())
+            held = timers.trace_counts()["counters"].get("sketch:codes_held_max", 0)
         peak = tracemalloc.get_traced_memory()[1]
     finally:
         tracemalloc.stop()
     assert got.hash.shape[0] > 4000
     assert peak < bases, f"{peak} bytes on the Python heap for {bases} bases"
-    assert sc.COUNTS["codes_held_max"] < peak
+    assert held < peak
 
 
 # A line longer than the readers' 1 MiB read buffers.

@@ -13,6 +13,7 @@ import ntjoin_tpu_torch.ops.sketch_general as sg
 import ntjoin_tpu_torch.ops.sketch_records as sr
 from ntjoin_tpu.ops.nthash_np import sketch_codes
 from ntjoin_tpu_torch.ops.sketch_general import sketch_general_torch
+from ntjoin_tpu_torch.utils import timers
 
 
 def _assert_same(got, want):
@@ -65,11 +66,12 @@ def test_general_matches_pallas_and_oracle(monkeypatch, k, w):
     monkeypatch.setattr(sp, "_host_sketch", no_host)
     want = sp.sketch_records_pallas(recs, k, w, interpret=True)
     _assert_same(want, [sketch_codes(c, k, w) for c in recs])
-    sc.reset_counts()
-    got = sr.sketch_records_torch(recs, k, w, "cpu")
-    assert sc.COUNTS["general_records"] == 4 and sc.COUNTS["general_batches"] == 1
-    assert sc.COUNTS["host_records"] == 0 and sc.COUNTS["host_records_size"] == 0
-    assert sc.COUNTS["hash"] == sc.COUNTS["flags"] == sc.COUNTS["window_emit"] == 0
+    with timers.recording(True):
+        got = sr.sketch_records_torch(recs, k, w, "cpu")
+        counts = timers.trace_counts()["counters"]
+    assert counts["sketch_route:general_records"] == 4 and counts["sketch_route:general_batches"] == 1
+    assert "sketch_route:host_records" not in counts
+    assert not {"launch:hash", "launch:flags", "launch:window_emit"} & set(counts)
     _assert_same(got, want)
 
 
@@ -81,9 +83,10 @@ def test_general_long_windows_match_oracle(monkeypatch, k, w):
     recs = [_dense(rng, 3 * w + 40_000, 3 * k, 2), _dense(rng, 3 * w + 2_000, 4 * k),
             _dense(rng, 2 * w + 9_000, 3 * k, 4)]
     _general_only(monkeypatch)
-    sc.reset_counts()
-    got = sr.sketch_records_torch(recs, k, w, "cpu")
-    assert sc.COUNTS["general_records"] == 3
+    with timers.recording(True):
+        got = sr.sketch_records_torch(recs, k, w, "cpu")
+        counts = timers.trace_counts()["counters"]
+    assert counts["sketch_route:general_records"] == 3
     _assert_same(got, [sketch_codes(c, k, w) for c in recs])
 
 
@@ -93,10 +96,11 @@ def test_general_exact_route(monkeypatch, slot_cap):
     exact window op, with the same sketch."""
     recs = _records(15, 10)
     _general_only(monkeypatch)
-    sc.reset_counts()
-    got = sr.sketch_records_torch(recs, 15, 10, "cpu", slot_cap=slot_cap)
-    assert sc.COUNTS["exact_runs"] == 2 and sc.COUNTS["window_plain"] == 2  # fused and general
-    assert sc.COUNTS["general_batches"] == 1
+    with timers.recording(True):
+        got = sr.sketch_records_torch(recs, 15, 10, "cpu", slot_cap=slot_cap)
+        counts = timers.trace_counts()["counters"]
+    assert counts["sketch_route:exact_runs"] == 2 and counts["launch:window_plain"] == 2  # fused and general
+    assert counts["sketch_route:general_batches"] == 1
     _assert_same(got, [sketch_codes(c, 15, 10) for c in recs])
 
 
@@ -145,11 +149,12 @@ def test_size_route_goes_to_host(monkeypatch):
         return host(codes, k, w)
 
     monkeypatch.setattr(sr, "_host_sketch", counted)
-    sc.reset_counts()
-    got = sr.sketch_records_torch(recs, 15, 10, "cpu")
-    assert calls == [50_000]
-    assert sc.COUNTS["host_records_size"] == 1 and sc.COUNTS["host_records"] == 1
-    assert sc.COUNTS["general_records"] == 1
+    with timers.recording(True):
+        got = sr.sketch_records_torch(recs, 15, 10, "cpu")
+        assert calls == [50_000]
+        counts = timers.trace_counts()["counters"]
+    assert counts["sketch_route:host_records"] == 1
+    assert counts["sketch_route:general_records"] == 1
     _assert_same(got, [sketch_codes(c, 15, 10) for c in recs])
 
 
@@ -163,11 +168,12 @@ def test_size_route_by_path(monkeypatch):
     small = _dense(rng, 9_000, 40, 2)
     monkeypatch.setattr(sr, "record_bound",
                         lambda device, general=False: 20_000 if general else 50_000)
-    sc.reset_counts()
-    got = sr.sketch_records_torch([clean, gappy, small], 15, 10, "cpu")
-    assert sc.COUNTS["host_records_size"] == 1 and sc.COUNTS["host_records"] == 1
-    assert sc.COUNTS["general_records"] == 1 and sc.COUNTS["general_batches"] == 1
-    assert sc.COUNTS["hash_plain"] == 2  # one fused batch, one general batch
+    with timers.recording(True):
+        got = sr.sketch_records_torch([clean, gappy, small], 15, 10, "cpu")
+        counts = timers.trace_counts()["counters"]
+    assert counts["sketch_route:host_records"] == 1
+    assert counts["sketch_route:general_records"] == 1 and counts["sketch_route:general_batches"] == 1
+    assert counts["launch:hash_plain"] == 2  # one fused batch, one general batch
     _assert_same(got, [sketch_codes(c, 15, 10) for c in (clean, gappy, small)])
 
 
@@ -253,10 +259,11 @@ def test_general_stream_edges(monkeypatch, case, k, w):
     _general_only(monkeypatch)
     want = [sketch_codes(c, k, w) for c in recs]
     _assert_same(sp.sketch_records_pallas(recs, k, w, interpret=True), want)
-    sc.reset_counts()
-    got = sr.sketch_records_torch(recs, k, w, "cpu")
-    assert sc.COUNTS["general_batches"] == 1 and sc.COUNTS["host_records"] == 0
-    assert sc.COUNTS["stream_plain"] == int(sum(c.shape[0] for c in recs) + k - 1 >= w)
+    with timers.recording(True):
+        got = sr.sketch_records_torch(recs, k, w, "cpu")
+        counts = timers.trace_counts()["counters"]
+    assert counts["sketch_route:general_batches"] == 1 and "sketch_route:host_records" not in counts
+    assert counts["launch:stream_plain"] == int(sum(c.shape[0] for c in recs) + k - 1 >= w)
     _assert_same(got, want)
     if case == "only_invalid_kmers":
         assert got[1].positions.shape[0] == 0
@@ -277,9 +284,10 @@ def test_stream_batch_layout(case):
     every rank the kept positions; one plain call counted and no launch."""
     k, w = 15, 10
     host, total, starts, (h, val, L) = _chunked_stream(case, k, w)
-    sc.reset_counts()
-    hs, vs, Ls, index = sg.stream_batch(host, total, starts, k, w)
-    assert sc.COUNTS["stream_plain"] == 1 and sc.COUNTS["stream"] == 0
+    with timers.recording(True):
+        hs, vs, Ls, index = sg.stream_batch(host, total, starts, k, w)
+        counts = timers.trace_counts()["counters"]
+    assert counts["launch:stream_plain"] == 1 and "launch:stream" not in counts
     keep = val[k - 1 : k - 1 + L].t().reshape(-1)[: total - k + 1].clone()
     dead = starts[1:] - 1
     keep[dead] = 1

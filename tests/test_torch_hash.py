@@ -9,6 +9,7 @@ import torch
 from ntjoin_tpu.ops.nthash_np import canonical_hashes
 from ntjoin_tpu.ops.sketch_pallas import _CHUNKS, _LANE, _SUB, _hash_chunked
 from ntjoin_tpu_torch.ops import sketch_cuda as sc
+from ntjoin_tpu_torch.utils import timers
 
 
 @pytest.mark.parametrize("k", [15, 32])
@@ -26,11 +27,12 @@ def test_hash_ref_matches_pallas_kernel(k):
     shape = (rows, _SUB, _LANE)
     lo, hi, val = _hash_chunked(jnp.asarray(x.reshape(shape)), jnp.asarray(lag.reshape(shape)),
                                 k, interpret=True)
-    sc.reset_counts()
-    h, v = sc.hash_chunked_ref(torch.from_numpy(x), k)
-    assert torch.equal(h, sc.from_jax_chunks(lo, hi))
-    assert np.array_equal(v.numpy(), np.asarray(val).reshape(rows, -1))
-    assert sc.COUNTS["hash_plain"] == 1 and sc.COUNTS["hash"] == 0
+    with timers.recording(True):
+        h, v = sc.hash_chunked_ref(torch.from_numpy(x), k)
+        assert torch.equal(h, sc.from_jax_chunks(lo, hi))
+        assert np.array_equal(v.numpy(), np.asarray(val).reshape(rows, -1))
+        counts = timers.trace_counts()["counters"]
+    assert counts["launch:hash_plain"] == 1 and "launch:hash" not in counts
 
 
 @pytest.mark.parametrize("k,w", [(21, 16), (32, 100)])
@@ -47,9 +49,10 @@ def test_hash_chunked_matches_oracle(k, w):
     rows = L + w + k - 2
     flat = np.full(C * L + w + k - 2, 4, dtype=np.int8)
     flat[:n] = codes
-    sc.reset_counts()
-    h, val = sc.hash_chunked(torch.from_numpy(flat), L, C, rows, k)
-    assert sc.COUNTS["hash_plain"] == 1 and sc.COUNTS["hash"] == 0
+    with timers.recording(True):
+        h, val = sc.hash_chunked(torch.from_numpy(flat), L, C, rows, k)
+        counts = timers.trace_counts()["counters"]
+    assert counts["launch:hash_plain"] == 1 and "launch:hash" not in counts
     assert tuple(h.shape) == (rows, C) and h.dtype == torch.int64
     canon, valid = canonical_hashes(flat.view(np.uint8), k)
     start = np.arange(C)[None, :] * L + np.arange(rows)[:, None] - (k - 1)

@@ -39,7 +39,7 @@ def test_every_copied_layer_is_listed():
                  "core.scaffolder", "graph.mingraph", "graph.paths", "emit.writers",
                  "ops.mannkendall", "ops.sketch_general", "utils.bloom", "analysis", "run",
                  "parallel.mesh", "parallel.distributed", "parallel.pipeline", "ops.filters",
-                 "dryrun", "bench", "perf_scale", "scaling_proxy"):
+                 "dryrun", "perf_scale", "scaling_proxy"):
         assert f"ntjoin_tpu_torch.{name}" in MODULES, name
 
 

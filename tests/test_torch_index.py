@@ -13,6 +13,7 @@ from ntjoin_tpu.graph import mingraph
 from ntjoin_tpu.ops import device_index as jax_index
 from ntjoin_tpu_torch.graph.mingraph import DeviceMinimizerGraph
 from ntjoin_tpu_torch.ops import device_index as di
+from ntjoin_tpu_torch.utils import timers
 
 
 def _mk_assemblies(seed, n_asm=3, n_ctg=4, per_ctg=200, dup_frac=0.1):
@@ -66,12 +67,12 @@ def _same_graph(got, want):
 
 @contextlib.contextmanager
 def _no_host_route():
-    """Fail if the code inside reaches the host index or graph builder."""
+    """Fail if the code inside reaches the host index or graph builder;
+    the port's counters recorded."""
     def refuse(*a, **kw):
         raise AssertionError("host route taken")
 
-    di.reset_counts()
-    with pytest.MonkeyPatch.context() as mp:
+    with timers.recording(True), pytest.MonkeyPatch.context() as mp:
         mp.setattr(SharedIndex, "__init__", refuse)
         mp.setattr(mingraph, "build_graph", refuse)
         yield
@@ -86,8 +87,8 @@ def _port(assemblies):
     with _no_host_route():
         shared = di.shared_index_device(assemblies, "cpu")
         graph = di.build_graph_device(shared, "cpu")
-    assert di.COUNTS["shared_filter"] == 1 and di.COUNTS["edge_tally"] == 1
-    assert di.DEVICES == {"shared_filter": "cpu", "edge_tally": "cpu"}
+        counts = timers.trace_counts()["counters"]
+    assert counts == {"graph:shared_filter@cpu": 1, "graph:edge_tally@cpu": 1}
     assert isinstance(graph, DeviceMinimizerGraph)
     return shared, graph
 
@@ -157,8 +158,9 @@ def test_pair_adjacent_twenty_times():
     want = mingraph.build_graph(shared)
     with _no_host_route():
         got = di.build_graph_device(shared, "cpu")
+        counts = timers.trace_counts()["counters"]
     _same_graph(got, want)
-    assert di.COUNTS["edge_tally"] == 1
+    assert counts == {"graph:edge_tally@cpu": 1}
     first = int(np.flatnonzero((got.src == 0) & (got.dst == 1))[0])
     assert got.weight[first] == want.weight[first] and got.support_mask[first] == 1
 

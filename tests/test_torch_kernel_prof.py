@@ -16,6 +16,7 @@ from ntjoin_tpu_torch import kernel_prof
 from ntjoin_tpu_torch.ops import membw
 from ntjoin_tpu_torch.ops import sketch_cuda as sc
 from ntjoin_tpu_torch.ops import sketch_records as sr
+from ntjoin_tpu_torch.utils import timers
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -58,9 +59,10 @@ def test_stop_after_hooks(k, w):
 def test_copy_words_plain_version(dtype, shape):
     x = torch.from_numpy(np.random.default_rng(5).integers(0, 100, size=shape).astype(np.int8))
     x = x.to(torch.int32).to(dtype) if dtype != torch.int8 else x
-    sc.reset_counts()
-    y = membw.copy_words(x)
-    assert sc.COUNTS["copy_plain"] == 1 and sc.COUNTS["copy"] == 0
+    with timers.recording(True):
+        y = membw.copy_words(x)
+        counts = timers.trace_counts()["counters"]
+    assert counts["launch:copy_plain"] == 1 and "launch:copy" not in counts
     assert y.dtype == x.dtype and torch.equal(y, x) and y.data_ptr() != x.data_ptr()
     assert torch.equal(membw.copy_words_ref(x), x)
 
@@ -80,12 +82,13 @@ def test_fused_call_counts_the_flag_op(plain):
     """On the CPU, and with ``plain=True`` anywhere, the fused call takes the
     flag op's plain version, once a call."""
     codes, flat, C, L = _stream(15, 10, 1 << 12)
-    sc.reset_counts()
-    sc.sketch_fused_torch(flat, codes.shape[0], 15, 10, plain=plain)
-    assert sc.COUNTS["flags_plain"] == 1 and sc.COUNTS["flags"] == 0
-    assert sc.COUNTS["hash_plain"] == 1 and sc.COUNTS["window_emit_plain"] == 1
-    assert set(sc.KERNELS) >= {"flags", "window", "window_emit_gmem"}
-    assert all(sc.COUNTS[name] == 0 for name in sc.KERNELS)
+    with timers.recording(True):
+        sc.sketch_fused_torch(flat, codes.shape[0], 15, 10, plain=plain)
+        counts = timers.trace_counts()["counters"]
+    assert counts["launch:flags_plain"] == 1 and "launch:flags" not in counts
+    assert counts["launch:hash_plain"] == 1 and counts["launch:window_emit_plain"] == 1
+    assert not [name for name in counts
+                if name.startswith("launch:") and not name.endswith("_plain")]
 
 
 def test_copy_rows_at_the_bench_size():

@@ -18,6 +18,7 @@ from ntjoin_tpu.ops import mannkendall as jax_mk
 from ntjoin_tpu_torch.core import orientation
 from ntjoin_tpu_torch.ops import mannkendall as mk
 from ntjoin_tpu_torch.ops import sketch_cuda as sc
+from ntjoin_tpu_torch.utils import timers
 
 
 def _batch(seed: int, b: int = 40, n: int = 96):
@@ -34,6 +35,11 @@ def _batch(seed: int, b: int = 40, n: int = 96):
     return pos.astype(np.int64), lengths.astype(np.int64)
 
 
+def _mk_counts(counts: dict) -> dict:
+    """The Mann-Kendall op's counters among ``counts``."""
+    return {name: n for name, n in counts.items() if name.startswith("mk:")}
+
+
 @pytest.mark.parametrize("seed,block", [(1, None), (2, 7), (3, 1), (4, 5000)])
 def test_mk_s_batch_matches_jax(seed, block, monkeypatch):
     pos, lengths = _batch(seed)
@@ -41,10 +47,11 @@ def test_mk_s_batch_matches_jax(seed, block, monkeypatch):
         monkeypatch.setattr(mk, "BLOCK_BYTES", block * pos.size)
     want = np.asarray(jax_mk.mk_s_batch(jnp.asarray(pos.astype(np.int32)),
                                         jnp.asarray(lengths.astype(np.int32))))
-    mk.reset_counts()
-    got = mk.mk_s_batch(torch.from_numpy(pos), torch.from_numpy(lengths))
+    with timers.recording(True):
+        got = mk.mk_s_batch(torch.from_numpy(pos), torch.from_numpy(lengths))
+        counts = timers.trace_counts()["counters"]
     assert got.dtype == torch.int64 and got.tolist() == want.tolist()
-    assert mk.COUNTS == {"mk_batches": 1, "mk_runs": pos.shape[0], "device": "cpu"}
+    assert _mk_counts(counts) == {"mk:batches@cpu": 1, "mk:runs@cpu": pos.shape[0]}
 
 
 def _s_by_insertion(x: list[int]) -> int:
@@ -105,15 +112,16 @@ def test_determine_orientations_mkt(seed):
     """Same verdicts as the JAX package's batched branch and as the scalar
     route, every ambiguous run through the op, one batch a padded width."""
     runs = _runs(seed)
-    mk.reset_counts()
-    got = orientation.determine_orientations(runs, True, 90, "cpu")
+    with timers.recording(True):
+        got = orientation.determine_orientations(runs, True, 90, "cpu")
+        counts = timers.trace_counts()["counters"]
     assert got == jax_orientation.determine_orientations(runs, True, 90)
     assert got == [orientation.determine_orientation(r, True, 90) for r in runs]
     ambiguous = [r for r in runs if len(r) > 1 and r != sorted(set(r))
                  and r != sorted(set(r), reverse=True)]
     widths = {orientation._mk_width(len(r)) for r in ambiguous}
     assert len(widths) > 5
-    assert mk.COUNTS == {"mk_batches": len(widths), "mk_runs": len(ambiguous), "device": "cpu"}
+    assert _mk_counts(counts) == {"mk:batches@cpu": len(widths), "mk:runs@cpu": len(ambiguous)}
     assert {"+", "-", "?"} <= set(got)
 
 
@@ -132,10 +140,11 @@ def test_mk_finish_matches_scalar():
 
 def test_orientation_without_mkt_runs_no_op():
     runs = _runs(10)
-    mk.reset_counts()
-    got = orientation.determine_orientations(runs, False, 90, "cpu")
+    with timers.recording(True):
+        got = orientation.determine_orientations(runs, False, 90, "cpu")
+        counts = timers.trace_counts()["counters"]
     assert got == jax_orientation.determine_orientations(runs, False, 90)
-    assert mk.COUNTS["mk_batches"] == 0
+    assert _mk_counts(counts) == {}
 
 
 def _padded(runs: list[list[int]], width: int) -> tuple[np.ndarray, np.ndarray]:
@@ -205,9 +214,10 @@ def test_mk_s_batch_refuses(positions, lengths, what):
 
 def test_mk_s_batch_cpu_takes_the_plain_version():
     pos, lengths = _edge_rows("short")
-    sc.reset_counts()
-    mk.mk_s_batch(torch.from_numpy(pos), torch.from_numpy(lengths))
-    assert sc.COUNTS["mk_s_plain"] == 1 and sc.COUNTS["mk_s"] == 0
+    with timers.recording(True):
+        mk.mk_s_batch(torch.from_numpy(pos), torch.from_numpy(lengths))
+        counts = timers.trace_counts()["counters"]
+    assert counts["launch:mk_s_plain"] == 1 and "launch:mk_s" not in counts
 
 
 def _tile_pair(p: int) -> tuple[int, int]:

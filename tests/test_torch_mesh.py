@@ -12,6 +12,7 @@ import torch
 from ntjoin_tpu.ops.nthash_np import sketch_codes
 from ntjoin_tpu.parallel import mesh as jax_mesh
 from ntjoin_tpu_torch.parallel import mesh
+from ntjoin_tpu_torch.utils import timers
 
 
 def _random(rng):
@@ -84,12 +85,14 @@ def _assert_same(got, want):
 @pytest.mark.parametrize("case", CASES, ids=[c.__name__.strip("_") for c in CASES])
 def test_sharded_matches_jax_and_oracle(case, n_shards):
     recs, k, w = case(np.random.default_rng(CASES.index(case)))
-    mesh.reset_counts()
-    got = mesh.sketch_records_sharded(recs, k, w, ["cpu"] * n_shards, max_inflight_bases=40_000)
+    with timers.recording(True):
+        got = mesh.sketch_records_sharded(recs, k, w, ["cpu"] * n_shards,
+                                          max_inflight_bases=40_000)
+        counts = timers.trace_counts()["counters"]
     _assert_same(got, [sketch_codes(c, k, w) for c in recs])
     _assert_same(got, jax_mesh.sketch_records_sharded(recs, k, w, jax_mesh.make_mesh(n_shards)))
     if n_shards > 1 and case in (_random, _n_runs, _repeat_seams):
-        assert mesh.COUNTS["tiles"] == n_shards and mesh.COUNTS["device_calls"] == 1
+        assert counts["mesh:tiles"] == n_shards and counts["mesh:device_calls"] == 1
 
 
 def _seam_run(codes, n_shards, k, w, length):
@@ -179,24 +182,22 @@ def test_devices_that_differ_sketch_in_threads():
     machine's cores), and every record equals the oracle."""
     import sys
 
-    from ntjoin_tpu_torch.ops import sketch_cuda as sc
-
     devices = ["cpu"] + [f"cpu:{i}" for i in range(9)]
     rng = np.random.default_rng(11)
     recs = [rng.integers(0, 4, size=12_000).astype(np.uint8) for _ in range(12)]
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        sc.reset_counts()
-        mesh.reset_counts()
-        got = mesh.sketch_records_sharded(recs, 21, 50, devices, max_inflight_bases=30_000)
+        with timers.recording(True):
+            got = mesh.sketch_records_sharded(recs, 21, 50, devices, max_inflight_bases=30_000)
+            counts = timers.trace_counts()["counters"]
     finally:
         sys.setswitchinterval(old)
     _assert_same(got, [sketch_codes(c, 21, 50) for c in recs])
-    assert mesh.COUNTS["tiles"] == 10 * len(recs) and mesh.COUNTS["device_calls"] == 10 * 4
+    assert counts["mesh:tiles"] == 10 * len(recs) and counts["mesh:device_calls"] == 10 * 4
     # one batch a device call: each launches every plain op once
     for op in ("hash", "flags", "window_emit"):
-        assert sc.COUNTS[f"{op}_plain"] == mesh.COUNTS["device_calls"], op
+        assert counts[f"launch:{op}_plain"] == counts["mesh:device_calls"], op
 
 
 def test_source_fed_mesh_matches_list_fed(tmp_path):
@@ -211,9 +212,9 @@ def test_source_fed_mesh_matches_list_fed(tmp_path):
     (tmp_path / "a.fa").write_bytes(b"".join(
         b">r%d\n" % i + letters[c].tobytes() + b"\n" for i, c in enumerate(recs)))
     devices = ["cpu"] * 3
-    mesh.reset_counts()
-    with FastaSource(str(tmp_path / "a.fa")) as src:
+    with timers.recording(True), FastaSource(str(tmp_path / "a.fa")) as src:
         got = cli._sharded(devices)(src, k, w)
-    assert mesh.COUNTS["sharded_records"] == len(recs)
+        counts = timers.trace_counts()["counters"]
+    assert counts["mesh:sharded_records"] == len(recs)
     _assert_same(got, mesh.sketch_records_sharded(recs, k, w, devices))
     _assert_same(got, [sketch_codes(c, k, w) for c in recs])

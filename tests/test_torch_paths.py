@@ -12,8 +12,8 @@ from ntjoin_tpu.graph.paths import _walk_chain, escalating_branch_filter
 from ntjoin_tpu.graph.paths import find_paths as host_find_paths
 from ntjoin_tpu.ops import device_paths as jax_paths
 from ntjoin_tpu_torch.graph.paths import find_paths
-from ntjoin_tpu_torch.ops import device_index as di
 from ntjoin_tpu_torch.ops import device_paths as dp
+from ntjoin_tpu_torch.utils import timers
 
 
 def _random_graph(rng, n_nodes, n_edges, n_asm=2):
@@ -41,9 +41,10 @@ def test_escalate_filter_matches_jax_and_host(seed):
     g_port = copy.deepcopy(g_host)
     jax_alive = jax_paths.escalate_filter_device(copy.deepcopy(g_host), comp, 2.0, 5.0)
     escalating_branch_filter(g_host, comp, 2.0, 5.0)
-    di.reset_counts()
-    alive = dp.escalate_filter_device(g_port, comp, 2.0, 5.0, "cpu")
-    assert di.COUNTS["escalate"] == 1 and di.DEVICES["escalate"] == "cpu"
+    with timers.recording(True):
+        alive = dp.escalate_filter_device(g_port, comp, 2.0, 5.0, "cpu")
+        counts = timers.trace_counts()["counters"]
+    assert counts["graph:escalate@cpu"] == 1
     assert alive.dtype == bool and np.array_equal(alive, g_host.alive)
     assert np.array_equal(alive, jax_alive)
     assert 0 < int(alive.sum()) < alive.shape[0]
@@ -82,9 +83,10 @@ def _chain_forest():
 
 def test_rank_walker_matches_walk_chain():
     n1, n2, e1, e2 = _chain_forest()
-    di.reset_counts()
-    walker = dp.make_rank_walker(n1, n2, e1, e2, "cpu")
-    assert di.COUNTS["rank"] == 1
+    with timers.recording(True):
+        walker = dp.make_rank_walker(n1, n2, e1, e2, "cpu")
+        counts = timers.trace_counts()["counters"]
+    assert counts["graph:rank@cpu"] == 1
     for source, length in [(0, 5), (4, 5), (5, 2), (6, 2), (8, 3), (10, 3)]:
         ref_nodes, ref_eids = _walk_chain(n1, n2, e1, e2, source, length)
         got_nodes, got_eids = walker.walk(source)
@@ -130,9 +132,10 @@ def test_find_paths_matches_host_and_jax(seed, weights, n_min):
     g_host, g_jax, g_port = (copy.deepcopy(g) for _ in range(3))
     host_paths, host_n = host_find_paths(g_host, shared, n_min, device=False)
     jax_paths_, jax_n = host_find_paths(g_jax, shared, n_min, device=True)
-    di.reset_counts()
-    got, n = find_paths(g_port, shared, n_min, "cpu")
-    assert di.COUNTS["cc"] == 2 and di.COUNTS["escalate"] == 1 and di.COUNTS["rank"] == 1
+    with timers.recording(True):
+        got, n = find_paths(g_port, shared, n_min, "cpu")
+        counts = timers.trace_counts()["counters"]
+    assert counts["graph:cc@cpu"] == 2 and counts["graph:escalate@cpu"] == 1 and counts["graph:rank@cpu"] == 1
     assert n == host_n == jax_n
     assert [p for p, _ in got] == [p for p, _ in host_paths] == [p for p, _ in jax_paths_]
     assert np.array_equal(g_port.alive, g_host.alive)

@@ -4,8 +4,8 @@ bit for bit, on the record sets of the JAX package's own batch tests."""
 import numpy as np
 import pytest
 
-import ntjoin_tpu_torch.ops.sketch_cuda as sc
 import ntjoin_tpu_torch.ops.sketch_records as sr
+from ntjoin_tpu_torch.utils import timers
 from ntjoin_tpu.ops.nthash_np import sketch_codes
 from ntjoin_tpu.ops.sketch_pallas import sketch_records_pallas
 
@@ -44,11 +44,12 @@ def _assert_same(got, want):
 @pytest.mark.parametrize("records", [_batched, _segmented, _clean])
 def test_records_match_pallas_and_oracle(records):
     recs = records()
-    sc.reset_counts()
-    got = sr.sketch_records_torch(recs, 15, 10, "cpu")
-    assert sc.COUNTS["hash_plain"] >= 1 and sc.COUNTS["window_emit_plain"] >= 1
-    assert sc.COUNTS["hash"] == sc.COUNTS["window_emit"] == sc.COUNTS["window"] == 0
-    assert sc.COUNTS["host_records"] == 0
+    with timers.recording(True):
+        got = sr.sketch_records_torch(recs, 15, 10, "cpu")
+        counts = timers.trace_counts()["counters"]
+    assert counts["launch:hash_plain"] >= 1 and counts["launch:window_emit_plain"] >= 1
+    assert not {"launch:hash", "launch:window_emit", "launch:window"} & set(counts)
+    assert "sketch_route:host_records" not in counts
     _assert_same(got, [sketch_codes(c, 15, 10) for c in recs])
     _assert_same(got, sketch_records_pallas(recs, 15, 10, interpret=True))
 
@@ -61,10 +62,11 @@ def test_pathological_n_density_goes_to_host(monkeypatch):
     codes = rng.integers(0, 4, size=60_000).astype(np.uint8)
     codes[::25] = 4
     clean = rng.integers(0, 4, size=20_000).astype(np.uint8)
-    sc.reset_counts()
-    got = sr.sketch_records_torch([codes, clean], 15, 16, "cpu")
-    assert sc.COUNTS["general_records"] == 1 and sc.COUNTS["general_batches"] == 1
-    assert sc.COUNTS["host_records"] == 0
+    with timers.recording(True):
+        got = sr.sketch_records_torch([codes, clean], 15, 16, "cpu")
+        counts = timers.trace_counts()["counters"]
+    assert counts["sketch_route:general_records"] == 1 and counts["sketch_route:general_batches"] == 1
+    assert "sketch_route:host_records" not in counts
     _assert_same(got, [sketch_codes(codes, 15, 16), sketch_codes(clean, 15, 16)])
 
 
@@ -75,9 +77,10 @@ def test_batches_split_records(monkeypatch):
     recs = [rng.integers(0, 4, size=ln).astype(np.uint8) for ln in [9000, 8000, 7000, 6000]]
     recs[2][3000:3100] = 4
     monkeypatch.setattr(sr, "BATCH_BASES", 16_000)
-    sc.reset_counts()
-    got = sr.sketch_records_torch(recs, 15, 10, "cpu")
-    assert sc.COUNTS["hash_plain"] >= 3
+    with timers.recording(True):
+        got = sr.sketch_records_torch(recs, 15, 10, "cpu")
+        counts = timers.trace_counts()["counters"]
+    assert counts["launch:hash_plain"] >= 3
     _assert_same(got, [sketch_codes(c, 15, 10) for c in recs])
 
 

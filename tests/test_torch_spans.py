@@ -232,8 +232,7 @@ def test_stage_files_unchanged(traced):
     lines = out.splitlines()
     i = lines.index("stage\twall_s\tpeak_rss_kb")
     assert [ln.split("\t")[0] for ln in lines[i + 1 : i + 4]] == list(STAGES)
-    assert [ln.split("\t")[0] for ln in lines[i + 4 :]] == [
-        "sketch_counts", "index_counts", "mk_counts", "trace_counts"]
+    assert [ln.split("\t")[0] for ln in lines[i + 4 :]] == ["trace_counts"]
 
 
 def test_trace_counts_name_every_span_and_counter(traced):
@@ -275,8 +274,13 @@ def test_no_trace_counts_without_time(tmp_path):
     assert not timers.ON and timers.trace_counts() == {"spans": {}, "counters": {}}
 
 
+def _layer(counters: dict, prefix: str, keep: bool = True) -> dict:
+    return {name: n for name, n in counters.items() if name.startswith(prefix) == keep}
+
+
 def test_index_backends_count_alike(tmp_path):
-    """The host and the device index backends record the same counters."""
+    """The host and the device index backends record the same counters, but
+    for the device's graph ops (``graph:``)."""
     got = {}
     for backend in ("host", "device"):
         d = tmp_path / backend
@@ -285,7 +289,37 @@ def test_index_backends_count_alike(tmp_path):
         rc, out = _assemble(d, "time=True", f"index_backend={backend}")
         assert rc == 0
         got[backend] = _line(out, "trace_counts")["counters"]
-    assert got["host"] == got["device"]
+    assert _layer(got["host"], "graph:", False) == _layer(got["device"], "graph:", False)
+    assert not _layer(got["host"], "graph:") and _layer(got["device"], "graph:")
+
+
+def test_second_run_counts_from_zero(tmp_path):
+    """Two ``time=True`` runs in one process print the same counters: each
+    recording starts from none, the kernels' launches included."""
+    got = []
+    for run in ("first", "second"):
+        d = tmp_path / run
+        d.mkdir()
+        _inputs(d)
+        rc, out = _assemble(d, "time=True")
+        assert rc == 0 and not [ln for ln in out.splitlines() if ln.startswith("sketch_counts")]
+        got.append(_line(out, "trace_counts")["counters"])
+    assert got[0] == got[1]
+    assert got[0]["launch:hash_plain"] >= 2 and got[0]["sketch:codes_held_max"] > 0
+
+
+def test_counter_names_follow_the_rule(traced):
+    """Every counter of the job is one the benchmark reads, unprefixed, or
+    ``<layer>:<name>``, each layer of the torch path present, the graph
+    ops' with the device type they ran on."""
+    _, _, tc = traced
+    counters = tc["counters"]
+    layers = {name.split(":", 1)[0] for name in counters if ":" in name}
+    assert layers == {"launch", "sketch_route", "sketch", "graph"}, sorted(counters)
+    assert {name for name in counters if ":" not in name} == set(COUNTERS) | {"fai_rescans"}
+    for op in ("shared_filter", "edge_tally", "cc", "escalate", "rank"):
+        assert counters[f"graph:{op}@cpu"] >= 1, op
+    assert all(name.endswith("_plain") for name in _layer(counters, "launch:"))
 
 
 def test_profiler_trace_nests_the_spans(tmp_path):

@@ -14,6 +14,7 @@ from ntjoin_tpu.ops.sketch_pallas import (
 from ntjoin_tpu_torch.ops import sketch_cuda as sc
 from ntjoin_tpu_torch.ops import sketch_records as sr
 from ntjoin_tpu_torch.ops import u64
+from ntjoin_tpu_torch.utils import timers
 
 # few distinct values (many ties), some with the top bit set (unsigned order)
 _ALPHABET = np.array([3, 7, 2**63, 2**63 + 1, 2**64 - 2, 5], dtype=np.uint64)
@@ -25,9 +26,10 @@ def test_window_argmin_matches_pallas(w):
     L = 3 * w
     n_el = L + w - 1
     h = _ALPHABET[rng.integers(0, _ALPHABET.shape[0], size=(n_el, _CHUNKS))]
-    sc.reset_counts()
-    am = sc.window_argmin(torch.from_numpy(h.view(np.int64)), L, w, 0)
-    assert sc.COUNTS["window_plain"] == 1 and sc.COUNTS["window"] == 0
+    with timers.recording(True):
+        am = sc.window_argmin(torch.from_numpy(h.view(np.int64)), L, w, 0)
+        counts = timers.trace_counts()["counters"]
+    assert counts["launch:window_plain"] == 1 and "launch:window" not in counts
     assert tuple(am.shape) == (L, _CHUNKS)
 
     rows = (-(-n_el // w) + 1) * w  # whole blocks plus one all-max flush block
@@ -94,15 +96,16 @@ def test_fused_stream_matches_pallas(k, w):
     rng = np.random.default_rng(21 + k)
     codes = rng.integers(0, 4, size=70_000).astype(np.int8)
     n = codes.shape[0]
-    sc.reset_counts()
-    pos, canon = _port_stream(codes, n, k, w)
-    jpos, jcanon = _pallas_stream(_pallas_buffer(codes, n, k, w), n, k, w)
-    assert pos.tolist() == jpos.tolist()
-    assert canon.tolist() == jcanon.tolist()
-    ref = sketch_codes(codes.view(np.uint8), k, w)
-    assert pos.tolist() == ref.positions.tolist()
-    assert derive_hash(canon, k).tolist() == ref.hashes.tolist()
-    assert sc.COUNTS["window_emit_plain"] == 1 and sc.COUNTS["exact_runs"] == 0
+    with timers.recording(True):
+        pos, canon = _port_stream(codes, n, k, w)
+        jpos, jcanon = _pallas_stream(_pallas_buffer(codes, n, k, w), n, k, w)
+        assert pos.tolist() == jpos.tolist()
+        assert canon.tolist() == jcanon.tolist()
+        ref = sketch_codes(codes.view(np.uint8), k, w)
+        assert pos.tolist() == ref.positions.tolist()
+        assert derive_hash(canon, k).tolist() == ref.hashes.tolist()
+        counts = timers.trace_counts()["counters"]
+    assert counts["launch:window_emit_plain"] == 1 and "sketch_route:exact_runs" not in counts
 
 
 @pytest.mark.parametrize("k,w", [(15, 16), (32, 40)])
@@ -135,9 +138,10 @@ def test_repeat_runs_take_exact_path():
     k, w = 15, 16
     codes = _repeat_codes()
     n = codes.shape[0]
-    sc.reset_counts()
-    pos, canon = _port_stream(codes.view(np.int8), n, k, w)
-    assert sc.COUNTS["exact_runs"] == 1 and sc.COUNTS["window_plain"] == 1
+    with timers.recording(True):
+        pos, canon = _port_stream(codes.view(np.int8), n, k, w)
+        counts = timers.trace_counts()["counters"]
+    assert counts["sketch_route:exact_runs"] == 1 and counts["launch:window_plain"] == 1
     jpos, jcanon = _pallas_stream(_pallas_buffer(codes.view(np.int8), n, k, w), n, k, w)
     assert pos.tolist() == jpos.tolist() and canon.tolist() == jcanon.tolist()
     ref = sketch_codes(codes, k, w)
@@ -157,9 +161,10 @@ def test_periodic_repeat_exact():
     codes = rng.integers(0, 4, size=70_000).astype(np.uint8)
     codes[30_000:30_600:2] = 0
     codes[30_001:30_601:2] = 1
-    sc.reset_counts()
-    got = sr.sketch_codes_torch(codes, k, w, "cpu")
-    assert sc.COUNTS["exact_runs"] == 1
+    with timers.recording(True):
+        got = sr.sketch_codes_torch(codes, k, w, "cpu")
+        counts = timers.trace_counts()["counters"]
+    assert counts["sketch_route:exact_runs"] == 1
     ref = sketch_codes(codes, k, w)
     assert got.positions.tolist() == ref.positions.tolist()
     assert got.hashes.tolist() == ref.hashes.tolist()
@@ -175,9 +180,10 @@ def test_forced_overflow_is_exact(slot_cap):
     codes[7_000:7_050] = 4
     n = codes.shape[0]
     base_pos, base_canon = _port_stream(codes, n, k, w)
-    sc.reset_counts()
-    pos, canon = _port_stream(codes, n, k, w, slot_cap=slot_cap)
-    assert sc.COUNTS["exact_runs"] == 1 and sc.COUNTS["window_plain"] == 1
+    with timers.recording(True):
+        pos, canon = _port_stream(codes, n, k, w, slot_cap=slot_cap)
+        counts = timers.trace_counts()["counters"]
+    assert counts["sketch_route:exact_runs"] == 1 and counts["launch:window_plain"] == 1
     assert pos.tolist() == base_pos.tolist() and canon.tolist() == base_canon.tolist()
 
 
@@ -355,9 +361,10 @@ def test_forced_window_on_a_block_seam_matches_pallas(k, w):
     assert n == total
     C, L = sc.layout(n, k, w)
     assert (start % L) % w == 0
-    sc.reset_counts()
-    pos, canon = _port_stream(stream, n, k, w)
-    assert sc.COUNTS["window_emit_plain"] == 1 and sc.COUNTS["exact_runs"] == 0
+    with timers.recording(True):
+        pos, canon = _port_stream(stream, n, k, w)
+        counts = timers.trace_counts()["counters"]
+    assert counts["launch:window_emit_plain"] == 1 and "sketch_route:exact_runs" not in counts
     assert ((pos >= start) & (pos < start + w)).any()  # the forced window's argmin
     jpos, jcanon = _pallas_stream(_pallas_buffer(stream, n, k, w), n, k, w, multi=True)
     assert pos.tolist() == jpos.tolist() and canon.tolist() == jcanon.tolist()
@@ -747,9 +754,10 @@ def _flags_three_ways(val, L, w, off, rows):
     stated window by window agree, also on a pitched val whose pad columns
     hold 0s or 1s; returns the flags."""
     want = _flags_by_windows(val, L, w, off)
-    sc.reset_counts()
-    got = sc.window_flags(torch.from_numpy(val), L, w, off)
-    assert sc.COUNTS["flags_plain"] == 1 and sc.COUNTS["flags"] == 0
+    with timers.recording(True):
+        got = sc.window_flags(torch.from_numpy(val), L, w, off)
+        counts = timers.trace_counts()["counters"]
+    assert counts["launch:flags_plain"] == 1 and "launch:flags" not in counts
     assert np.array_equal(got.numpy(), want)
     assert np.array_equal(_flags_by_passes(val, L, w, off, rows), want)
     for pad in (0, 1):
